@@ -1,5 +1,5 @@
 // Native data loader: the DevIL / GLTexInput::LoadImageFile analog
-// (SURVEY.md §2.1 "GL texture wrapper" row ⚠), TPU-native edition.
+// (SURVEY.md §2.1 "GL texture wrapper" row ⚠), JAX edition.
 //
 // The reference decodes/converts images on the host before upload; this
 // library does the same job as a multithreaded C++ pipeline feeding batched

@@ -1,10 +1,10 @@
-"""siftgpu_tpu: a TPU-native SLAM/SfM engine with a SiftGPU-class front end.
+"""siftgpu_tpu: a JAX SLAM/SfM engine with a SiftGPU-class front end.
 
-Brand-new JAX/XLA/Pallas implementation (not a port) of the capabilities of the
+Brand-new JAX/XLA implementation (not a port) of the capabilities of the
 SiftGPU-derived reference (SURVEY.md): Gaussian/DoG pyramid, subpixel extrema,
 orientation assignment, 128-D descriptors, brute-force + guided matching, and
 an SfM back end (RANSAC two-view geometry, bundle adjustment, pose graph)
-designed for SPMD execution over TPU meshes.
+designed for SPMD execution over device meshes.
 """
 
 from .core.config import MatchConfig, SiftConfig

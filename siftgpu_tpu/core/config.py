@@ -1,10 +1,10 @@
-"""Frozen configuration for the TPU SIFT front end.
+"""Frozen configuration for the SIFT front end.
 
 Replaces the reference's ambient global mutable state (`GlobalUtil::_*` statics +
 `SiftParam`, SURVEY.md §5.6 ⚠) with one hashable frozen dataclass that is passed
 explicitly and used as a `jax.jit` static argument.  All shapes derived from it
 (octave sizes, window sizes, keypoint capacities) are static Python ints so the
-whole pipeline traces with fixed shapes — the core TPU-first design decision
+whole pipeline traces with fixed shapes — the core design decision
 (SURVEY.md §7.1).
 """
 
@@ -80,39 +80,6 @@ class SiftConfig:
     #   2 (-tc2):     prefer COARSE octaves (large scale), response breaks ties
     truncate_method: int = 0
     per_octave_cap: int = 0        # 0 => auto: max(64, max_keypoints >> octave)
-    # candidate compaction: "exact" = lax.top_k always; "approx" =
-    # lax.approx_max_k always; "auto" = approx only on accelerators AND when
-    # the pooled candidate array exceeds `topk_approx_min` entries (4K-class
-    # octaves).  Approximate selection can drop ~(1-recall) of borderline
-    # candidates when the octave cap binds; small-image parity configs stay
-    # exact under "auto".  recall_target=0.97 measured on v5e at 4K/12.4M
-    # candidates (scripts/approx_recall.py, 2026-08-20): winner-set overlap
-    # 0.978 vs exact (>= the BASELINE 95% repeatability bar with margin) at
-    # 9.5 ms/iter for the whole detect_winners stage vs 42.3 ms exact;
-    # recall 0.90 gave only 0.924 overlap (the round-1 silent risk, VERDICT
-    # r1 item 4).
-    detect_topk: str = "auto"
-    topk_recall: float = 0.97
-    # per-chunk PartialReduce target for the CHUNKED top-k (rows above
-    # ~2M entries split into 16 chunks + one exact merge, detect._run_topk):
-    # the chunked form over-delivers recall (each chunk reduces ~16x fewer
-    # entries per survivor), so 0.90 here measures winner overlap 0.9908 at
-    # oct0-4K — above the single-call path's 0.978 at target 0.97
-    # (scripts/approx_recall.py, v5e 2026-08-22)
-    topk_chunk_recall: float = 0.90
-    # 2^16: engages approx from ~640x480 TAIL octaves upward, which also
-    # lets detect_pyramid batch the tail octaves into ONE approx call at
-    # 640-class (the r4 batching only fired at 4K-class).  Per-row-size
-    # exact-vs-approx solo cost (scripts/profile_detect.py, v5e
-    # 2026-08-22, ~0.9 ms dispatch floor in both): 245k entries 3.45 vs
-    # 1.00 ms, 73k 2.09 vs 0.94, 24k 1.20 vs 0.89, 6k 0.97 vs 0.89 —
-    # approx wins or ties at EVERY size down to the floor; 2^16 keeps
-    # tiny parity-config octaves exact.  Winner-set overlap vs exact at
-    # recall 0.97 (scripts/approx_recall.py, v5e 2026-08-21): 0.9908 at
-    # 640x480/oct0 (921k pooled, cap 2048) and 0.978 at 4K (12.4M pooled,
-    # cap 8192); the 640 FULL-pyramid overlap incl. batched approx tails
-    # is re-validated by scripts/tail_overlap.py.
-    topk_approx_min: int = 1 << 16
 
     # --- orientation ---
     max_orientations: int = 2
@@ -132,11 +99,6 @@ class SiftConfig:
     # --- conventions / numerics ---
     lowe_origin: bool = False
     pyramid_dtype: str = "float32"
-    # f32 matmul emulation for the banded-matmul blur path: "high" = 3-pass
-    # bf16 (<= 2e-5 abs DoG error, ~20% faster pyramids), "highest" = 6-pass.
-    # The CPU conv path is exact regardless.
-    pyramid_precision: str = "high"
-    use_pallas: bool = True        # Pallas kernels where available, else pure XLA
     # `-obo`: octave-by-octave processing (GlobalUtil::_ProcessOBO analog ⚠
     # SURVEY §5.7): one dispatch per octave bounds peak HBM to one octave's
     # working set; identical outputs (frontend.extract.extract_features_obo)
@@ -260,19 +222,12 @@ class MatchConfig:
     # [N0, N1] similarity matrix) when N1 exceeds it — for descriptor sets
     # far beyond SetMaxSift's ~8k.  0 = AUTO: the streaming path engages
     # with `stream_block` columns whenever N1 > `stream_threshold`; below it
-    # the dense path is untouched.  -1 = always dense.
-    # Measured v5e (scripts/bench_match_stream.py, 2026-08-21, ms/pair,
-    # dense vs best stream): 4k 3.3/3.7, 8k 8.2/6.9, 16k 13.2/10.6 (dense
-    # similarity buffer 1 GB), 32k -/33.1 (dense buffer would be 4 GB) —
-    # streaming wins from 8k-class sets and block 1024 is the sweet spot.
+    # the dense path is untouched.  -1 = always dense.  The threshold and
+    # block are carried over untuned; PERF.md has the 16k x 16k time they
+    # give on the H100.
     block_size: int = 0
     stream_threshold: int = 4096
     stream_block: int = 1024
-    # fused Pallas match-reduction kernel (ops/match_kernel.py) on
-    # accelerators for uint8 descriptors: the [N0, N1] similarity matrix
-    # never reaches HBM, subsuming both the dense and streaming paths.
-    # False forces the XLA dense/streaming paths (e.g. for cross-checks).
-    use_pallas: bool = True
 
     def replace(self, **kw) -> "MatchConfig":
         return dataclasses.replace(self, **kw)

@@ -1,6 +1,6 @@
-"""Scale-space math shared by the TPU path and the CPU oracle.
+"""Scale-space math shared by the JAX path and the CPU oracle.
 
-This module is pure NumPy on purpose: both the JAX/Pallas front end and the
+This module is pure NumPy on purpose: both the JAX front end and the
 golden NumPy oracle import their sigma schedules and Gaussian filter taps from
 here, so the two paths agree on every constant by construction.
 

@@ -1,17 +1,17 @@
 """128-D SIFT descriptor: rotated 16x16 bilinear resample + trilinear binning.
 
-TPU-native replacement for `ProgramCU::ComputeDescriptor`/`NormalizeDescriptor`
+Replacement for `ProgramCU::ComputeDescriptor`/`NormalizeDescriptor`
 (SURVEY.md §2.4 item 6 ⚠).  The reference iterates over the (sigma-dependent,
-dynamically sized) pixel support of each 4x4 cell; the TPU-first formulation
+dynamically sized) pixel support of each 4x4 cell; this formulation
 resamples the gradient field on a FIXED G x G grid (G = 16) rotated to the
 keypoint orientation, spaced 3*sigma/G_cell pixels — the standard GPU-SIFT
 variant (static shapes, pure gathers + matmuls).
 
 Because the sample grid is fixed in cell units, the spatial bilinear weights
 (wr, wc) and the Gaussian window (gw) are CONSTANT [G, 4] / [G, G] matrices:
-binning reduces to mag -> 8-way orientation split -> two tiny constant
-contractions, all MXU-friendly.  Only the gradient gather and the relative
-angle depend on the keypoint.
+binning reduces to mag -> 8-way orientation split -> one constant
+contraction.  Only the gradient gather and the relative angle depend on the
+keypoint.
 
 Quantization: clamp(floor(512 * v + 0.5), 0, 255) after normalize -> clip
 0.2 -> renormalize (reference convention, SURVEY §2.4).
@@ -29,7 +29,7 @@ import numpy as np
 from ..core.config import SiftConfig
 from .orient import GradStack
 
-__all__ = ["compute_descriptors", "finalize_descriptors", "bin_descriptors"]
+__all__ = ["compute_descriptors", "finalize_descriptors"]
 
 _TWO_PI = 6.283185307179586
 
@@ -70,7 +70,7 @@ def _sample_coords(y, x, sigma, theta, cfg: SiftConfig):
 
 
 def _bilerp_xla(grads: GradStack, py, px, lvl):
-    """Gather-based bilinear sampling (CPU / fallback path). -> sgx, sgy."""
+    """Gather-based bilinear sampling. -> sgx, sgy."""
     B, C, G, _ = py.shape
     Hp, Wp = grads.gx.shape[-2:]
     x0 = jnp.clip(jnp.floor(px).astype(jnp.int32), 0, Wp - 1)
@@ -86,9 +86,7 @@ def _bilerp_xla(grads: GradStack, py, px, lvl):
     def bilerp(flat):
         def g(yi, xi):
             idx = (base + yi * Wp + xi).reshape(B, -1)
-            # upcast at the gather boundary: bf16 storage, f32 blend math
-            return jnp.take_along_axis(flat, idx, axis=1).reshape(
-                B, C, G, G).astype(jnp.float32)
+            return jnp.take_along_axis(flat, idx, axis=1).reshape(B, C, G, G)
         return (
             g(y0, x0) * (1 - fy) * (1 - fx)
             + g(y0, x1) * (1 - fy) * fx
@@ -99,68 +97,8 @@ def _bilerp_xla(grads: GradStack, py, px, lvl):
     return bilerp(gxf), bilerp(gyf)
 
 
-def _bilerp_pallas(grads: GradStack, py, px, lvl, interpret: bool = False):
-    """Pallas window-DMA sampling (the TPU fast path, ops/desc_sampler.py)."""
-    from ..ops import desc_sampler
-
-    B, C, G, _ = py.shape
-    S = grads.gx.shape[1]
-    Hp, Wp = grads.gx.shape[-2:]
-    planes_x = grads.gx.reshape(B * S, Hp, Wp)
-    planes_y = grads.gy.reshape(B * S, Hp, Wp)
-    b_idx = jnp.repeat(jnp.arange(B, dtype=jnp.int32)[:, None], C, axis=1)
-    plane = (b_idx * S + lvl).reshape(B * C)
-    sgx, sgy = desc_sampler.sample_gradients(
-        planes_x, planes_y, plane,
-        py.reshape(B * C, G * G), px.reshape(B * C, G * G),
-        interpret=interpret,
-    )
-    return sgx.reshape(B, C, G, G), sgy.reshape(B, C, G, G)
-
-
-def _bin_chunk(sgx, sgy, theta, cfg: SiftConfig):
-    """Raw (pre-normalization) descriptors from sampled gradients.
-
-    sgx, sgy: [B, C, G2] bilinear gradient samples on the rotated grid, with
-    out-of-image samples already zeroed; theta: [B, C].  Shared by the
-    XLA/desc_sampler path and the fused kp_engine path.
-    """
-    G = cfg.descriptor_grid
-    D = cfg.descriptor_width
-    NB = cfg.descriptor_bins
-    B, C, G2 = sgx.shape
-
-    _, wrc, gw = _grid_constants(G, D, cfg.descriptor_samples_per_cell)
-    wrc = jnp.asarray(wrc)
-    gwf = jnp.asarray(gw).reshape(G2)
-
-    # one-hot soft assign (a cumulative-relu basis — NB+1 channels ψ =
-    # (1, ob, relu(ob-1), ..) with the tent second-difference matrix applied
-    # after the spatial contraction, as in kp_engine._cum_to_bin_matrix —
-    # was measured WORSE here: 2.25 vs 1.84 ms isolated at 4x8192 kp on
-    # v5e 2026-08-22; the extra MXU channel + second contraction outweigh
-    # the saved floor/compare VPU ops, unlike the kernel's VPU-bound case)
-    mag = jnp.sqrt(sgx * sgx + sgy * sgy) * gwf            # [B, C, G2]
-    ang = (jnp.arctan2(sgy, sgx) - theta[..., None]) % _TWO_PI
-    ob = ang * (NB / _TWO_PI)
-    o0 = jnp.clip(jnp.floor(ob).astype(jnp.int32), 0, NB - 1)
-    fo = ob - jnp.floor(ob)
-
-    oh0 = jax.nn.one_hot(o0, NB, dtype=jnp.float32)
-    oh1 = jax.nn.one_hot((o0 + 1) % NB, NB, dtype=jnp.float32)
-    mo = (mag * (1.0 - fo))[..., None] * oh0 + (mag * fo)[..., None] * oh1
-    mo = mo.reshape(B, C, G, G, NB)
-
-    desc = jnp.einsum(
-        "bkijo,ir,jc->bkrco", mo, wrc, wrc,
-        precision=jax.lax.Precision.HIGHEST,
-    )                                                      # [B, C, D, D, NB]
-    return desc.reshape(B, C, D * D * NB)
-
-
 def _descriptor_chunk(
     grads: GradStack, y, x, sigma, theta, lvl, cfg: SiftConfig,
-    sampler: str = "xla", interpret: bool = False,
 ):
     """Raw (pre-normalization) descriptors for a chunk. y..lvl: [B, C]."""
     G = cfg.descriptor_grid
@@ -173,41 +111,36 @@ def _descriptor_chunk(
     py_g = py + grads.y0
     inb = (px >= 0) & (px <= grads.w - 1) & (py_g >= 0) & (py_g <= grads.global_h - 1)
 
-    if sampler.startswith("pallas"):
-        sgx, sgy = _bilerp_pallas(
-            grads, py, px, lvl,
-            interpret=interpret or sampler == "pallas_interpret",
-        )
-    else:
-        sgx, sgy = _bilerp_xla(grads, py, px, lvl)
+    sgx, sgy = _bilerp_xla(grads, py, px, lvl)
     sgx = (sgx * inb).reshape(B, C, G * G)
     sgy = (sgy * inb).reshape(B, C, G * G)
-    return _bin_chunk(sgx, sgy, theta, cfg)
+    return _bin_chunk_fast(sgx, sgy, theta, cfg)
 
 
 @lru_cache(maxsize=None)
 def _w2_constant(G: int, D: int, spc: int) -> np.ndarray:
     """[G2, D*D] fused row x col spatial-tent matrix: W2[g, r*D+c] =
-    wr[i(g), r] * wc[j(g), c] — collapses the double [G,D] einsum of
-    `_bin_chunk` into ONE G2-contraction."""
+    wr[i(g), r] * wc[j(g), c] — collapses a double [G, D] contraction over
+    rows and columns into ONE G2-contraction."""
     _, wrc, _ = _grid_constants(G, D, spc)
     return np.einsum("ir,jc->ijrc", wrc, wrc).reshape(G * G, D * D)
 
 
-def _bin_chunk_fast(sgx, sgy, theta, cfg: SiftConfig, bf16: bool):
-    """Accelerator formulation of `_bin_chunk`: circular-tent orientation
-    weights + a single [G2, D*D] MXU contraction.
+def _bin_chunk_fast(sgx, sgy, theta, cfg: SiftConfig):
+    """Descriptor binning: circular-tent orientation weights + a single
+    [G2, D*D] contraction (tests/test_describe.py checks it against a
+    golden one-hot body).
 
     The adjacent-bin soft assign w(o0) = 1-fo, w(o0+1 mod NB) = fo is
     exactly relu(1 - circular_distance(ob, bin)) — no floor/one-hot compare
     chain; the row/col cell tents collapse into the constant `_w2_constant`
-    so cell binning is one G2-contraction per orientation channel.
-    Measured (v5e, [4, 16384, 256] slots, scripts/probe_bin.py): 2.53 ms
-    (one-hot + double einsum, chunk 512) -> 1.65 f32 -> 1.04 bf16; the bf16
-    contraction moves no descriptor element by more than 1 uint8 step.
+    so cell binning is one G2-contraction per orientation channel, in f32
+    at HIGHEST on every platform.  (A bf16 contraction measured 13-23%
+    faster on the H100 but moves ~1.2% of descriptor elements by one uint8
+    step; that was not worth ~0.2 ms of a 5-15 ms extraction, PERF.md.)
     Wrap-edge semantics: ob == NB (fp rounding of ang ~ 2pi) lands its
     weight on bin 0 — the oracle's `floor(ob) % NB` (oracle/sift_cpu.py),
-    where `_bin_chunk`'s clip kept it on bin NB-1.
+    where the golden body's clip keeps it on bin NB-1.
     """
     B, C, G2 = sgx.shape
     NB = cfg.descriptor_bins
@@ -223,59 +156,10 @@ def _bin_chunk_fast(sgx, sgy, theta, cfg: SiftConfig, bf16: bool):
     w = jnp.maximum(1.0 - jnp.minimum(ad, NB - ad), 0.0)
     mo = mag[..., None, :] * w
     W2 = jnp.asarray(_w2_constant(G, D, cfg.descriptor_samples_per_cell))
-    dn = (((3,), (0,)), ((), ()))
-    if bf16:
-        desc = jax.lax.dot_general(
-            mo.astype(jnp.bfloat16), W2.astype(jnp.bfloat16), dn,
-            preferred_element_type=jnp.float32,
-        )                                              # [B, C, NB, D*D]
-    else:
-        desc = jax.lax.dot_general(
-            mo, W2, dn, precision=jax.lax.Precision.HIGHEST,
-        )
+    desc = jax.lax.dot_general(
+        mo, W2, (((3,), (0,)), ((), ())), precision=jax.lax.Precision.HIGHEST,
+    )                                                  # [B, C, NB, D*D]
     return jnp.swapaxes(desc, -1, -2).reshape(B, C, D * D * NB)
-
-
-def bin_descriptors(
-    sgx: jax.Array, sgy: jax.Array, theta: jax.Array, cfg: SiftConfig,
-    chunk: int | None = None,
-) -> jax.Array:
-    """uint8 descriptors from pre-sampled gradients (the fused-kernel path).
-
-    sgx, sgy: [B, K2, G2] with out-of-image samples zeroed; theta: [B, K2].
-    Chunked over keypoints with `lax.map` to bound the [B, chunk, NB, G2]
-    intermediate, exactly like `compute_descriptors`.  Rides
-    `_bin_chunk_fast` (bf16 contraction on accelerators, f32 HIGHEST on
-    CPU so interpret-mode parity tests stay tight); the golden/unfused
-    path keeps `_bin_chunk`.
-    """
-    bf16 = jax.default_backend() != "cpu"
-    if chunk is None:
-        # the bf16 intermediate is half the size: larger chunks amortize the
-        # lax.map step overhead (1.09 -> 1.04 ms; the r4 chunk-2048 negative
-        # result was measured on the f32 one-hot body)
-        chunk = 2048 if bf16 else 512
-    B, K2, G2 = sgx.shape
-    pad = (-K2) % chunk
-    if pad:
-        zf3 = lambda a: jnp.pad(a, ((0, 0), (0, pad), (0, 0)))
-        sgx, sgy = zf3(sgx), zf3(sgy)
-        theta = jnp.pad(theta, ((0, 0), (0, pad)))
-    nc = sgx.shape[1] // chunk
-
-    def to_chunks3(a):
-        return jnp.moveaxis(a.reshape(B, nc, chunk, G2), 1, 0)
-
-    args = (to_chunks3(sgx), to_chunks3(sgy),
-            jnp.moveaxis(theta.reshape(B, nc, chunk), 1, 0))
-
-    def body(a):
-        cx, cy_, cth = a
-        return _bin_chunk_fast(cx, cy_, cth, cfg, bf16)
-
-    out = jax.lax.map(body, args)                  # [nc, B, chunk, 128]
-    out = jnp.moveaxis(out, 0, 1).reshape(B, nc * chunk, -1)[:, :K2]
-    return finalize_descriptors(out, cfg)
 
 
 def finalize_descriptors(desc: jax.Array, cfg: SiftConfig) -> jax.Array:
@@ -289,32 +173,24 @@ def finalize_descriptors(desc: jax.Array, cfg: SiftConfig) -> jax.Array:
     return jnp.clip(jnp.floor(512.0 * desc + 0.5), 0, 255).astype(jnp.uint8)
 
 
-def _pick_sampler(cfg: SiftConfig) -> str:
-    if not cfg.use_pallas:
-        return "xla"
-    try:
-        import jax as _jax
-
-        return "xla" if _jax.default_backend() == "cpu" else "pallas"
-    except Exception:
-        return "xla"
+# Keypoint slots per `lax.map` step of `compute_descriptors`: on the H100,
+# batch 4 ran fastest at chunk 512 and batch 1 at chunk 2048 (PERF.md).
+_SLOTS_PER_STEP = 2048
 
 
 def compute_descriptors(
     grads: GradStack,
     y: jax.Array, x: jax.Array, sigma: jax.Array, theta: jax.Array,
-    grad_level: jax.Array, cfg: SiftConfig, chunk: int = 512,
-    sampler: str | None = None,
+    grad_level: jax.Array, cfg: SiftConfig, chunk: int | None = None,
 ) -> jax.Array:
     """All inputs [B, K2] (orientation axis pre-flattened). -> uint8 [B, K2, 128].
 
     Chunked over keypoints with `lax.map` to bound the [B, chunk, G, G, NB]
-    intermediate (SURVEY §7.4: memory, not FLOPs, is the constraint here).
-    The gradient sampling inside each chunk uses the Pallas window-DMA kernel
-    on accelerators (cfg.use_pallas) and the XLA gather path on CPU.
+    intermediate (SURVEY §7.4: memory, not FLOPs, is the constraint here);
+    by default each step holds about `_SLOTS_PER_STEP` slots of the batch.
     """
-    sampler = sampler or _pick_sampler(cfg)
     B, K2 = y.shape
+    chunk = chunk or min(K2, max(1, _SLOTS_PER_STEP // B))
     lvl = grad_level - 1
     pad = (-K2) % chunk
     if pad:
@@ -330,7 +206,7 @@ def compute_descriptors(
 
     def body(a):
         cy, cx, cs, cth, cl = a
-        return _descriptor_chunk(grads, cy, cx, cs, cth, cl, cfg, sampler=sampler)
+        return _descriptor_chunk(grads, cy, cx, cs, cth, cl, cfg)
 
     out = jax.lax.map(body, args)                  # [nc, B, chunk, 128]
     out = jnp.moveaxis(out, 0, 1).reshape(B, nc * chunk, -1)[:, :K2]

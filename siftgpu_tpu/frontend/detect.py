@@ -1,23 +1,21 @@
 """Keypoint detection: DoG extrema -> contrast/edge tests -> subpixel refine.
 
-TPU-native replacement for `ProgramCU::ComputeKEY` + the histogram-pyramid
+Replacement for `ProgramCU::ComputeKEY` + the histogram-pyramid
 list generation (`InitHist/ReduceHist/ListGen`, SURVEY.md §2.4 items 3-4 ⚠).
 The reference compacts variable-length keypoint lists on the GPU and reads the
 count back to the host; here there are NO host syncs and NO dynamic shapes:
 
   1. dense extrema / contrast / edge masks AND the dense closed-form
-     (Cramer) subpixel solve over the DoG volume in one fused Pallas stencil
-     pass on accelerators (ops/detect_scores.py) — the pass already holds
-     all 27 taps, so it emits a per-pixel refinement record
-     (val, off_l, off_y, off_x) alongside the score planes;
-  2. per-octave `top_k` of |DoG| over 2x2-pooled candidate scores into a
-     fixed-capacity buffer (deterministic: score desc, flat index asc —
-     SURVEY §7.4 item 1), winner pixel recovered from the block corner index
-     packed in the score's low mantissa bits;
-  3. ONE packed `take_along_axis` pulls each survivor's 4-field record —
-     merged across ALL octaves by `detect_pyramid` (the per-element gather
-     cost made the previous 19-cell DoG patch gather the dominant detect
-     stage);
+     (Cramer) subpixel solve over the DoG volume in one elementwise pass
+     that XLA fuses — the pass already holds all 27 taps, so it emits a
+     per-pixel refinement record (val, off_l, off_y, off_x) alongside the
+     score planes;
+  2. per-octave exact `top_k` of |DoG| over 2x2-pooled candidate scores
+     into a fixed-capacity buffer (deterministic: score desc, flat index
+     asc — SURVEY §7.4 item 1), winner pixel recovered from the block
+     corner index packed in the score's low mantissa bits;
+  3. ONE packed `take_along_axis` pulls each survivor's 4-field record,
+     merged across ALL octaves by `detect_pyramid`;
   4. offset/contrast/border validity tests on the gathered records.
 
 The candidate ordering uses the *unrefined* |DoG| response; the oracle orders
@@ -36,7 +34,7 @@ from .pyramid import Octave
 
 __all__ = [
     "OctaveKeypoints", "OctaveWinners",
-    "detect_octave", "detect_pyramid", "detect_winners",
+    "cramer_record", "detect_octave", "detect_pyramid", "detect_winners",
     "record_indices", "refine_records",
 ]
 
@@ -77,30 +75,54 @@ def _pool8(x: jax.Array, op) -> jax.Array:
     return out
 
 
-def _pick_scores_impl(cfg: SiftConfig) -> str:
-    """Fused Pallas stencil on accelerators, XLA on CPU.  Queue-amortized
-    TPU timings (v5e): detect over all octaves 1080p 8.4 ms Pallas vs 20.9 ms
-    XLA; 4K 22.7 vs 36.1; 640x480 b4 10.8 vs 11.6 — Pallas wins at every
-    octave size."""
-    if not cfg.use_pallas:
-        return "xla"
-    try:
-        return "xla" if jax.default_backend() == "cpu" else "pallas"
-    except Exception:
-        return "xla"
+def cramer_record(q, subpixel):
+    """Dense subpixel-refinement record: the closed-form (Cramer) 3x3 solve
+    at every pixel.  `q(dl, dy, dx)` returns the DoG tap array at that
+    offset.  Returns (val, off_l, off_y, off_x, (dyy, dxx, dxy)) — the
+    spatial Hessian terms are returned so the caller's edge-ratio test
+    reuses them instead of recomputing (they are exactly the solve's
+    d/f/e_ terms)."""
+    vc = q(0, 0, 0)
+    # spatial Hessian (needed by the edge test even when subpixel is off)
+    d = q(0, 1, 0) + q(0, -1, 0) - 2 * vc
+    f = q(0, 0, 1) + q(0, 0, -1) - 2 * vc
+    e_ = 0.25 * (q(0, 1, 1) - q(0, 1, -1) - q(0, -1, 1) + q(0, -1, -1))
+    if not subpixel:
+        zero = vc * 0.0
+        return vc, zero, zero, zero, (d, f, e_)
+    gl = 0.5 * (q(1, 0, 0) - q(-1, 0, 0))
+    gy = 0.5 * (q(0, 1, 0) - q(0, -1, 0))
+    gx = 0.5 * (q(0, 0, 1) - q(0, 0, -1))
+    a = q(1, 0, 0) + q(-1, 0, 0) - 2 * vc
+    b_ = 0.25 * (q(1, 1, 0) - q(1, -1, 0) - q(-1, 1, 0) + q(-1, -1, 0))
+    c_ = 0.25 * (q(1, 0, 1) - q(1, 0, -1) - q(-1, 0, 1) + q(-1, 0, -1))
+    i00 = d * f - e_ * e_
+    i01 = c_ * e_ - b_ * f
+    i02 = b_ * e_ - c_ * d
+    i11 = a * f - c_ * c_
+    i12 = b_ * c_ - a * e_
+    i22 = a * d - b_ * b_
+    # detH via the first adjugate row (b_*i01 == -b_*(b_*f - c_*e_) exactly:
+    # f32 negation is exact, so this is bit-identical to the expanded form
+    # while reusing i00/i01/i02)
+    detH = a * i00 + b_ * i01 + c_ * i02
+    ok_det = jnp.abs(detH) > 1e-12
+    inv_det = jnp.where(ok_det, 1.0 / jnp.where(ok_det, detH, 1.0), 0.0)
+    off_l = -(i00 * gl + i01 * gy + i02 * gx) * inv_det
+    off_y = -(i01 * gl + i11 * gy + i12 * gx) * inv_det
+    off_x = -(i02 * gl + i12 * gy + i22 * gx) * inv_det
+    val = vc + 0.5 * (gl * off_l + gy * off_y + gx * off_x)
+    return val, off_l, off_y, off_x, (d, f, e_)
 
 
-def _dense_scores_xla(dog: jax.Array, cfg: SiftConfig, owned_rows):
-    """Masked per-type candidate score planes + dense refinement record,
-    pure-XLA formulation.
+def _dense_scores(dog: jax.Array, cfg: SiftConfig, owned_rows):
+    """Masked per-type candidate score planes + dense refinement record.
 
     Returns (s_max, s_min, val, off_l, off_y, off_x), all [B, S, He, We]
     (He/We = H/W rounded up to even).  Nonzero score entries are |DoG| at
     strict 26-neighbor extrema passing the pre-threshold + Hessian edge +
     interior tests; the record planes carry the Cramer subpixel solve of
-    every pixel (garbage at non-candidates — only winner cells are read).
-    The Pallas kernel (ops/detect_scores.py) computes the identical planes
-    in one fused pass on accelerators; this is the CPU / golden route."""
+    every pixel (garbage at non-candidates — only winner cells are read)."""
     B, L, H, W = dog.shape
     S = L - 2
     v = dog[:, 1 : S + 1]              # [B, S, H, W] candidate slices
@@ -116,12 +138,8 @@ def _dense_scores_xla(dog: jax.Array, cfg: SiftConfig, owned_rows):
     is_max = (v > 0) & (v > nmax) & pre
     is_min = (v < 0) & (v < nmin) & pre
 
-    # --- dense subpixel-refinement record (shared `cramer_record`: ONE
-    # expression graph for this mirror and the Pallas kernel, so their
-    # ulp-level agreement cannot drift; its spatial-Hessian terms double
-    # as the edge test's dyy/dxx/dxy) ---
-    from ..ops.detect_scores import cramer_record
-
+    # --- dense subpixel-refinement record (its spatial-Hessian terms
+    # double as the edge test's dyy/dxx/dxy) ---
     dgp = jnp.pad(dog.astype(jnp.float32), ((0, 0), (0, 0), (1, 1), (1, 1)))
 
     def q(dl, dy, dx):
@@ -163,8 +181,7 @@ def _dense_scores_xla(dog: jax.Array, cfg: SiftConfig, owned_rows):
         s_max = jnp.pad(s_max, pad2)
         s_min = jnp.pad(s_min, pad2)
         recs = tuple(jnp.pad(p, pad2) for p in recs)
-    # score planes are ROW-POOLED (matching the Pallas kernel's emission);
-    # the consumer pools the lane pairs
+    # score planes are ROW-POOLED here; the consumer pools the column pairs
     rp = lambda p: jax.lax.reduce_window(
         p, 0.0, jax.lax.max, (1, 1, 2, 1), (1, 1, 2, 1), "VALID"
     )
@@ -188,24 +205,20 @@ class OctaveWinners(NamedTuple):
 
 def detect_winners(
     dog: jax.Array, cfg: SiftConfig, cap: int, owned_rows=None,
-    scores_impl: str | None = None,
 ) -> OctaveWinners:
-    """Back-compat wrapper: winners only (profiling scripts)."""
-    win, _, _ = _winners_and_records(dog, cfg, cap, owned_rows, scores_impl)
+    """Winners only (integer pixels of the pooled top-k, pre-refinement)."""
+    win, _, _ = _winners_and_records(dog, cfg, cap, owned_rows)
     return win
 
 
 def _winners_and_records(
     dog: jax.Array, cfg: SiftConfig, cap: int, owned_rows=None,
-    scores_impl: str | None = None,
 ):
     """Dense scores -> 2x2-pooled top-k -> integer winner pixels.
 
     `owned_rows=(lo, hi)` restricts candidates to slab rows [lo, hi) — used
     by the spatially-sharded path so halo-region extrema neither consume
-    top-k capacity nor get double-counted across shards.  `scores_impl`:
-    "xla" | "pallas" | "pallas_interpret" (default: auto — the fused Pallas
-    stencil on accelerators, XLA on CPU; both produce identical planes).
+    top-k capacity nor get double-counted across shards.
 
     --- fixed-capacity compaction via EXACT 2x2-pooled top-k ---
     Within one extremum TYPE, strict 26-neighbor extrema are never 8-adjacent
@@ -213,38 +226,24 @@ def _winners_and_records(
     each 2x2 block holds at most one MAXIMUM and one MINIMUM candidate.
     Pooling the two types separately and concatenating keeps top-k exact at
     half the sort size.  (A max and a min CAN be adjacent — pooling |DoG|
-    jointly would drop one.)  Pooling uses a native strided reduce_window
-    (2.6 ms at 4K vs 40 ms for the reshape/moveaxis formulation it replaced);
-    the winner's within-block corner rides in the two low mantissa bits of
-    the score (`_pack_corner`), so no post-top-k corner gather is needed.
+    jointly would drop one.)  The winner's within-block corner rides in the
+    two low mantissa bits of the score (`_pack_corner`), so no post-top-k
+    corner gather is needed.
     """
-    bscore, recs, (Hs, Ws), (nb1, Hs2) = _octave_scores(
-        dog, cfg, owned_rows, scores_impl
-    )
-    top, bidx = _run_topk(bscore, cap, cfg)
+    bscore, recs, (Hs, Ws), (nb1, Hs2) = _octave_scores(dog, cfg, owned_rows)
+    top, bidx = _run_topk(bscore, cap)
     win = _decode_topk(top, bidx, cap, nb1, Hs2, Ws)
     return win, recs, (Hs, Ws)
 
 
-def _octave_scores(dog, cfg, owned_rows=None, scores_impl=None):
+def _octave_scores(dog, cfg, owned_rows=None):
     """Dense scores + pooling only — the per-octave front half of
-    `_winners_and_records`; `detect_pyramid` batches the top-k across
-    octaves (per-call top_k overhead dominated the tail octaves: 8.1 ms of
-    the 4K detect stage across 8 calls).  Returns
+    `_winners_and_records`, split out so `detect_pyramid` can run the
+    top-k of every octave before the merged record gather.  Returns
     (bscore [B, nb], records, (Hs, Ws), (nb1, Hs2))."""
     B, L, H, W = dog.shape
     S = L - 2
-    impl = scores_impl or _pick_scores_impl(cfg)
-    if impl.startswith("pallas"):
-        from ..ops.detect_scores import detect_scores
-
-        s_max, s_min, r_val, r_ol, r_oy, r_ox = detect_scores(
-            dog, cfg, owned_rows, interpret=(impl == "pallas_interpret")
-        )
-    else:
-        s_max, s_min, r_val, r_ol, r_oy, r_ox = _dense_scores_xla(
-            dog, cfg, owned_rows
-        )
+    s_max, s_min, r_val, r_ol, r_oy, r_ox = _dense_scores(dog, cfg, owned_rows)
     Hs2, Ws = s_max.shape[-2:]
     Hs = r_val.shape[-2]
 
@@ -262,71 +261,15 @@ def _octave_scores(dog, cfg, owned_rows=None, scores_impl=None):
     return bscore, (r_val, r_ol, r_oy, r_ox), (Hs, Ws), (nb1, Hs2)
 
 
-_TWOSTAGE_MIN = 1 << 21  # 4K-class only: at 640-class rows (921k) the
-                         # chunked form at chunk-recall 0.90 measured
-                         # overlap 0.9550 vs the single call's 0.9908 at
-                         # 0.97 (chunks are small there, no over-delivery)
-                         # for only ~0.2 ms — measured and rejected   # row length above which the chunked form wins
-_TWOSTAGE_R = 16          # chunks per row
-_TWOSTAGE_KDIV = 4        # per-chunk k = cap // KDIV (capacity guard: one
-                          # chunk may hold up to kc of the row's true top-k).
-                          # Sweep at 4K-oct0 (scripts/probe_topk0.py, 12.5M
-                          # entries, k=8192): KDIV=2 2.44 ms / overlap
-                          # 0.9955, KDIV=4 1.88 / 0.9885, R=32 KDIV=8
-                          # 1.85 / 0.9874, single-call rc=.90 2.10 / 0.9535
-                          # — approx cost scales with per-call k, so the
-                          # smaller chunk k wins while chunk spreading keeps
-                          # overlap far above the 0.95 quality bar
-
-
-def _run_topk(bscore, cap, cfg):
-    """Exact/approx top-k policy on a [rows, n] score matrix.
-
-    approx_max_k's cost at large k is dominated by its FINAL exact top-k
-    over the ~k/(1-recall) PartialReduce survivors, not by the reduction
-    pass (measured oct0-4K k=8192: 5.0 ms at recall .97 vs 2.0 ms at
-    k=2048 on the same 12.4M entries).  Above `_TWOSTAGE_MIN` entries the
-    row is therefore split into R chunks, each approx-reduced to
-    kc = cap/2, and the R*kc survivors merged with one small exact top_k —
-    same recall class (a chunk would have to hold > half the row's true
-    winners to lose any; winners are spread across S DoG slices x image
-    bands), measured 3.0 ms vs 5.0 at oct0-4K."""
-    use_approx = cfg.detect_topk == "approx" or (
-        cfg.detect_topk == "auto"
-        and bscore.shape[1] >= cfg.topk_approx_min
-        and jax.default_backend() != "cpu"
-    )
-    rows, n = bscore.shape
+def _run_topk(bscore, cap):
+    """Fixed-capacity exact top-k of a [rows, n] pooled score matrix (score
+    descending, lower index first on ties).  One `lax.top_k` per row set:
+    on the H100 it beat splitting the 4K octave-0 row (12.4M entries, k =
+    8192) into exact per-chunk top-k plus a merge at every chunk count
+    tried (PERF.md)."""
+    n = bscore.shape[1]
     k = min(cap, n)  # tiny octaves: fewer pooled entries than cap
-    if use_approx and n >= _TWOSTAGE_MIN and k > 1024:
-        R = _TWOSTAGE_R
-        npad = -(-n // R) * R
-        kc = min(max(512, k // _TWOSTAGE_KDIV), npad // R)
-        bp = jnp.pad(bscore, ((0, 0), (0, npad - n))).reshape(
-            rows * R, npad // R
-        )
-        v, ic = jax.lax.approx_max_k(
-            bp, kc, recall_target=cfg.topk_chunk_recall
-        )
-        base = (
-            jax.lax.broadcasted_iota(jnp.int32, (rows * R, 1), 0)
-            % R * (npad // R)
-        )
-        ic = ic.astype(jnp.int32) + base
-        v = v.reshape(rows, R * kc)
-        ic = ic.reshape(rows, R * kc)
-        top, sel = jax.lax.top_k(v, k)
-        bidx = jnp.take_along_axis(ic, sel, axis=1)
-    elif use_approx:
-        # TPU PartialReduce-based top-k: ~2 ms vs ~27 ms exact on 12M-entry
-        # 4K candidate arrays; may miss ~(1-recall) of borderline candidates
-        # when the cap binds (see SiftConfig.detect_topk)
-        top, bidx = jax.lax.approx_max_k(
-            bscore, k, recall_target=cfg.topk_recall
-        )
-        bidx = bidx.astype(jnp.int32)
-    else:
-        top, bidx = jax.lax.top_k(bscore, k)         # [rows, k]
+    top, bidx = jax.lax.top_k(bscore, k)
     if k < cap:  # pad to the fixed capacity; zero scores are masked by `cand`
         top = jnp.pad(top, ((0, 0), (0, cap - k)))
         bidx = jnp.pad(bidx, ((0, 0), (0, cap - k)))
@@ -346,11 +289,9 @@ def _decode_topk(top, bidx, cap, nb1, Hs2, Ws):
     return OctaveWinners(py=py, px=px, l=l, cand=cand)
 
 
-# The subpixel solve no longer gathers 3x3x3 DoG patches: the dense score
-# pass (Pallas kernel / XLA mirror) already holds all 27 taps and emits the
-# Cramer RECORD (val, off_l, off_y, off_x) per pixel, so the top-k tail
-# gathers 4 record cells per winner instead of 19 patch cells — per-element
-# gather cost (~11-15 ns on v5e, independent of locality) dominated detect.
+# The dense score pass already holds all 27 taps and emits the Cramer RECORD
+# (val, off_l, off_y, off_x) per pixel, so the top-k tail gathers 4 record
+# cells per winner instead of a 3x3x3 DoG patch.
 N_REC = 4
 
 
@@ -414,7 +355,6 @@ def refine_records(
 
 def detect_octave(
     oc: Octave, cfg: SiftConfig, cap: int, owned_rows=None,
-    scores_impl: str | None = None,
 ) -> OctaveKeypoints:
     """Single-octave detection (see `detect_winners` for the semantics).
     The multi-octave single-chip path uses `detect_pyramid`, which merges the
@@ -422,21 +362,16 @@ def detect_octave(
     dog = oc.dog                       # [B, S+2, H, W]
     B, L, H, W = dog.shape
     S = L - 2
-    win, recs, (Hs, Ws) = _winners_and_records(
-        dog, cfg, cap, owned_rows, scores_impl
-    )
+    win, recs, (Hs, Ws) = _winners_and_records(dog, cfg, cap, owned_rows)
     ridx = record_indices(win, S, Hs, Ws)
     rf = jnp.concatenate([r.reshape(B, -1) for r in recs], axis=1)
     rec = jnp.take_along_axis(rf, ridx, axis=1).reshape(B, N_REC, -1)
     return refine_records(rec, win, cfg, H, W)
 
 
-def detect_pyramid(
-    pyr, cfg: SiftConfig, caps=None, scores_impl: str | None = None,
-):
+def detect_pyramid(pyr, cfg: SiftConfig, caps=None):
     """Detection over ALL octaves with the record gathers of every octave
-    merged into ONE take_along_axis (per-call gather cost ~1 ms dominates
-    the per-octave formulation).  Returns a list of per-octave
+    merged into ONE take_along_axis.  Returns a list of per-octave
     `OctaveKeypoints`, identical to calling `detect_octave` per octave."""
     caps = caps or [cfg.octave_cap(o) for o in range(len(pyr))]
     B = pyr[0].dog.shape[0]
@@ -444,56 +379,16 @@ def detect_pyramid(
     bscores, recss, hw, metas, dims = [], [], [], [], []
     for oc in pyr:
         _, L, H, W = oc.dog.shape
-        bscore, recs, (Hs, Ws), meta = _octave_scores(
-            oc.dog, cfg, None, scores_impl
-        )
+        bscore, recs, (Hs, Ws), meta = _octave_scores(oc.dog, cfg)
         bscores.append(bscore)
         recss.append(recs)
         hw.append((Hs, Ws, L - 2))
         metas.append(meta)
         dims.append((H, W))
 
-    # phase 2: top-k — octave 0 alone (its candidate array dwarfs the
-    # rest); the other octaves PAD into one batched call WHEN the padded
-    # group rides the approx path (cost per element is tiny there, and the
-    # per-call top_k floor dominated the tail octaves: measured 4K detect
-    # top-k 8.8 ms per-octave vs 6.7 batched).  With an exact-path group
-    # (small images) the 4x-per-octave padding inflation costs more than
-    # the saved call floors (640: 3.1 -> 3.6 ms), so stay per-octave.
-    # Parity: top-k_max of a zero-padded row, sliced to the octave's cap,
-    # equals the octave's own top-cap for the exact path (padding scores
-    # are 0 and `cand` masks them); the batched group's approx recall is
-    # re-validated by scripts/approx_recall.py.
-    tops, bidxs = [None] * len(pyr), [None] * len(pyr)
-    tops[0], bidxs[0] = _run_topk(bscores[0], caps[0], cfg)
-    n_max = max((b.shape[1] for b in bscores[1:]), default=0)
-    batch_ok = (
-        len(pyr) > 2
-        and cfg.detect_topk != "exact"
-        and n_max >= cfg.topk_approx_min
-        and jax.default_backend() != "cpu"
-    )
-    if batch_ok:
-        k_max = max(
-            min(c, b.shape[1]) for c, b in zip(caps[1:], bscores[1:])
-        )
-        batch = jnp.stack(
-            [jnp.pad(b, ((0, 0), (0, n_max - b.shape[1])))
-             for b in bscores[1:]], axis=1,
-        ).reshape(B * (len(pyr) - 1), n_max)
-        topb, bidxb = _run_topk(batch, k_max, cfg)
-        topb = topb.reshape(B, len(pyr) - 1, -1)
-        bidxb = bidxb.reshape(B, len(pyr) - 1, -1)
-        for i, cap in enumerate(caps[1:]):
-            t = topb[:, i, :cap]
-            x = bidxb[:, i, :cap]
-            if cap > t.shape[1]:
-                t = jnp.pad(t, ((0, 0), (0, cap - t.shape[1])))
-                x = jnp.pad(x, ((0, 0), (0, cap - x.shape[1])))
-            tops[i + 1], bidxs[i + 1] = t, x
-    else:
-        for i in range(1, len(pyr)):
-            tops[i], bidxs[i] = _run_topk(bscores[i], caps[i], cfg)
+    # phase 2: exact top-k, one call per octave (zero-padding the tail
+    # octaves into one batched call measured slower on the H100, PERF.md)
+    tops, bidxs = zip(*[_run_topk(b, c) for b, c in zip(bscores, caps)])
 
     # phase 3: decode winners + merge the record gathers into ONE call
     wins, ridxs, flats = [], [], []
@@ -517,3 +412,4 @@ def detect_pyramid(
         col += N_REC * cap
         outs.append(refine_records(rec, win, cfg, H, W))
     return outs
+

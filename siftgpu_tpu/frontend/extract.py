@@ -75,17 +75,10 @@ def octave_candidates(
 
     y2, x2, s2, gl2, r2 = map(dup, (kp.y, kp.x, kp.sigma, kp.grad_level, kp.response))
 
-    if describe._pick_sampler(cfg) == "pallas":
-        # fused Pallas path: one window DMA per keypoint feeds orientation
-        # histogram + descriptor sampling (ops/kp_engine.py)
-        from . import fused
-
-        th2, m2, d2 = fused.orient_describe_fused(grads, kp, cfg)
-    else:
-        theta, valid = orient.compute_orientations(grads, kp, cfg)  # [B,cap,n]
-        th2 = theta.reshape(B, cap * n)
-        m2 = valid.reshape(B, cap * n)
-        d2 = describe.compute_descriptors(grads, y2, x2, s2, th2, gl2, cfg)
+    theta, valid = orient.compute_orientations(grads, kp, cfg)  # [B,cap,n]
+    th2 = theta.reshape(B, cap * n)
+    m2 = valid.reshape(B, cap * n)
+    d2 = describe.compute_descriptors(grads, y2, x2, s2, th2, gl2, cfg)
     return dict(y=y2, x=x2, sigma=s2, theta=th2, response=r2, mask=m2, desc=d2)
 
 
@@ -95,17 +88,15 @@ def prefilter_candidates(kps, cfg: SiftConfig):
     `assemble_features` keeps the cfg.max_keypoints highest-response
     orientation SLOTS.  Every valid candidate contributes at least one valid
     slot at exactly its own response (the slot-0 theta=0 fallback in
-    `fused.orient_describe_fused` / `orient.compute_orientations`), so a
+    `orient.compute_orientations`), so a
     candidate whose response is strictly below the K-th largest valid
     candidate response is outranked by >= K slots and can never be selected
     — masking it changes nothing downstream (ties kept via >=).
 
-    The payoff is performance: per-octave caps sum to ~2*max_keypoints
-    (SiftConfig.octave_cap), and the fused keypoint engine skips whole
-    blocks of masked candidates, so its per-keypoint window DMA + VPU work
-    drops ~2x when the caps saturate.  Candidates arrive response-sorted per
-    octave (detect top_k order), so survivors stay front-compacted and the
-    masked tail skips in whole blocks.
+    Survivors are front-compacted per octave (stable argsort on the mask,
+    relative order kept, so the final output stays bit-identical).  The
+    orientation/descriptor stages still process every slot, so the mask
+    saves no work on the current XLA route (PERF.md, open questions).
     """
     K = cfg.max_keypoints
     rank = (lambda r: jnp.abs(r)) if cfg.keep_sign else (lambda r: r)
@@ -118,15 +109,7 @@ def prefilter_candidates(kps, cfg: SiftConfig):
     thr = jnp.where(jnp.isfinite(thr), thr, -jnp.inf)  # < K valid: keep all
     masks = [k.mask & (rank(k.response) >= thr) for k in kps]
 
-    # Front-compact survivors per octave: candidates arrive sorted by
-    # UNREFINED score but the threshold applies to the REFINED response, so
-    # survivors have stragglers scattered through the tail — and the engine
-    # pays full block cost for any block with >= 1 valid slot.  A stable
-    # argsort on the mask restores one contiguous valid prefix while
-    # preserving the survivors' relative order (assemble's top_k tie-breaks
-    # by slot index, so the final output stays bit-identical).  All octaves
-    # and all 7 candidate fields ride ONE take_along_axis (gather cost on
-    # this platform is per-call).
+    # all octaves and all 7 candidate fields ride ONE take_along_axis
     def stackf(k, m):
         return jnp.stack(
             [k.y, k.x, k.level, k.grad_level.astype(jnp.float32),
@@ -251,8 +234,7 @@ def _obo_prep_jit(images: jax.Array, cfg: SiftConfig) -> jax.Array:
         for _ in range(cfg.first_octave):
             x = pyramid.downsample2x(x)
     return pyramid.blur_separable(
-        x, cfg.gaussian_taps(cfg.initial_blur_sigma()),
-        precision=cfg.pyramid_precision,
+        x, cfg.gaussian_taps(cfg.initial_blur_sigma())
     )
 
 
@@ -267,8 +249,7 @@ def _obo_octave_jit(base: jax.Array, cfg: SiftConfig, o: int):
     for s in cfg.incremental_sigmas():
         levels.append(
             pyramid.blur_separable(
-                levels[-1], cfg.gaussian_taps(float(s)),
-                precision=cfg.pyramid_precision,
+                levels[-1], cfg.gaussian_taps(float(s))
             )
         )
     gauss = jnp.stack(levels, axis=1)

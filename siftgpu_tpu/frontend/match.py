@@ -1,12 +1,12 @@
 """Descriptor matching: brute-force best-2 + ratio test, and guided variants.
 
-TPU-native replacement for `SiftMatchGPU` / `ProgramCU::MultiplyDescriptor[G]` +
+Replacement for `SiftMatchGPU` / `ProgramCU::MultiplyDescriptor[G]` +
 `GetRowMatch/GetColMatch` (SURVEY.md §2.4 items 7-8, §3.2 ⚠).  The n0 x n1 x 128
-dot-product volume is MXU work.  uint8 descriptors (the production format, and
-the reference's own `MultiplyDescriptor` design point: tiled uint8 dot-products)
-take the exact-bf16 MXU path (`_u8_parts`/`_u8_sim`): uint8 values (0..255) are
-exact in bf16's 8 significand bits and the 128-term integer dot stays < 2^23,
-so ONE bf16 MXU pass with f32 accumulation reproduces the integer dot
+dot-product volume is one matrix product.  uint8 descriptors (the production
+format, and the reference's own `MultiplyDescriptor` design point: tiled uint8
+dot-products) take the exact-bf16 path (`_u8_parts`/`_u8_sim`): uint8 values
+(0..255) are exact in bf16's 8 significand bits and the 128-term integer dot
+stays < 2^23, so ONE bf16 pass with f32 accumulation reproduces the integer dot
 bit-exactly — no recentering or multi-pass emulation — followed by a single
 f32 reciprocal-norm epilogue.  (An int8-recenter + rank-1-correction scheme
 was the first design; the bf16-exact form replaced it — same exactness, one
@@ -66,9 +66,10 @@ def _u8_parts(d: jax.Array):
     """bf16 view + per-row reciprocal L2 norm for exact uint8 dots.
 
     uint8 values (0..255) are exact in bf16 (8 significand bits) and the
-    128-term integer dot stays < 2^23, so ONE bf16 MXU pass with f32
-    accumulation reproduces the uint8 dot bit-exactly (verified vs int64
-    on v5e) — no recentering or multi-pass HIGHEST emulation needed."""
+    128-term integer dot stays < 2^23, so ONE bf16 pass with f32
+    accumulation reproduces the uint8 dot bit-exactly (checked against an
+    int64 NumPy brute force by chip_smoke.py) — no recentering or
+    multi-pass emulation needed."""
     i = d.astype(jnp.int32)
     sq = (i * i).sum(axis=1, dtype=jnp.int32).astype(jnp.float32)
     rn = jax.lax.rsqrt(jnp.maximum(sq, 1e-24))
@@ -76,10 +77,9 @@ def _u8_parts(d: jax.Array):
 
 
 def _u8_sim(parts0, parts1) -> jax.Array:
-    """Cosine similarity block from `_u8_parts` tuples (bf16 MXU dot).
-
-    Rounding order `(dot * rn1) * rn0` is the bit-parity contract with the
-    fused Pallas kernel (`ops/match_kernel.py`) — keep them in sync."""
+    """Cosine similarity block from `_u8_parts` tuples (bf16 dot, f32
+    accumulation); the dense and streaming paths share this rounding order
+    `(dot * rn1) * rn0`, so their selections agree bit for bit."""
     b0, rn0 = parts0
     b1, rn1 = parts1
     dot = jax.lax.dot_general(
@@ -88,25 +88,11 @@ def _u8_sim(parts0, parts1) -> jax.Array:
     return (dot * rn1[None, :]) * rn0[:, None]
 
 
-def _fused_select(d0, d1, mask0, mask1, cfg: MatchConfig) -> MatchResult:
-    """Fused Pallas matcher (accelerators, uint8): the [N0, N1] similarity
-    matrix never touches HBM — only O(N0 + N1) reduction vectors do.  Same
-    selection + f32 winner values as the dense XLA path (kernel docstring
-    states the bit-parity contract)."""
-    from ..ops.match_kernel import match_best2
-
-    _, rn0 = _u8_parts(d0)
-    _, rn1 = _u8_parts(d1)
-    bs, ss, bj, ci = match_best2(d0, d1, rn0, rn1, mask0, mask1)
-    return _finalize(bs, ss, bj, ci if cfg.mutual_best else None, cfg)
-
-
 def _best2_sim(sim: jax.Array):
     """Per-row best & second-best SIMILARITY. sim: [N, M] (higher = closer).
 
-    The winner is knocked out with a compare+select against a column iota
-    (TPU scatter for `.at[rows, best_j].set` is orders of magnitude slower
-    than this one fused pass)."""
+    The winner is knocked out with a compare+select against a column iota,
+    one fused pass with no scatter."""
     best_j = jnp.argmax(sim, axis=1)
     best = jnp.max(sim, axis=1)
     cols = jax.lax.broadcasted_iota(jnp.int32, sim.shape, 1)
@@ -134,12 +120,11 @@ def _finalize(bsim, ssim, best_j, col_best_i, cfg: MatchConfig) -> MatchResult:
     ok &= jnp.isfinite(bsim)
 
     # compact valid rows into the fixed buffer, preserving row order, on
-    # (valid-first, row-order) keys — never a scatter (TPU scatter is the
-    # platform's slowest primitive).  With max_match < N0 (every production
-    # config: capacities << N0) lax.top_k on the negated key selects the
-    # first max_match valid rows directly — top_k(k << n) is the cheaper
-    # shape than a full argsort (VERDICT r4 task 1a).  At capacity == N0 a
-    # full-width reorder is inherently sort-class work, so argsort stays.
+    # (valid-first, row-order) keys — no scatter.  With max_match < N0
+    # lax.top_k on the negated key selects the first max_match valid rows
+    # directly (top_k(k << n) is the cheaper shape than a full argsort).
+    # At capacity == N0 a full-width reorder is sort-class work anyway, so
+    # argsort stays.
     rows = jnp.arange(n0, dtype=jnp.int32)
     key = jnp.where(ok, rows, n0 + rows)            # valid first, row order
     m = cfg.max_match
@@ -178,23 +163,39 @@ def _match_streaming(
     loc0=None, loc1=None, H=None, F=None,
     hdist_max: float = 32.0, fdist_max: float = 16.0,
 ) -> MatchResult:
-    """Blockwise streaming best-2 matcher (the FlashAttention-style path,
+    """Blockwise streaming matcher: `_stream_best2` then `_finalize`."""
+    return _finalize(
+        *_stream_best2(d0, d1, mask0, mask1, cfg, loc0, loc1, H, F,
+                       hdist_max, fdist_max),
+        cfg,
+    )
+
+
+def _stream_best2(
+    d0, d1, mask0, mask1, cfg: MatchConfig,
+    loc0=None, loc1=None, H=None, F=None,
+    hdist_max: float = 32.0, fdist_max: float = 16.0,
+):
+    """Blockwise streaming best-2 (the FlashAttention-style path,
     SURVEY.md §2.4 item 7): d1 is processed in `cfg.block_size`-column
     blocks under `lax.scan`, carrying per-row running (best, second, argbest)
     — the [N0, N1] similarity matrix is never materialized, so descriptor
-    sets far beyond SetMaxSift's ~8k (64 MB at 4k x 4k f32) fit on chip.
-    Column-side best rows (mutual check) complete within each block, which
-    holds all N0 rows.  Bit-identical selection semantics to the dense path
-    (first-index tie-breaks preserved by the strict `>` merge).
+    sets far beyond SetMaxSift's ~8k (64 MB at 4k x 4k f32) fit in device
+    memory.  Column-side best rows (mutual check) complete within each
+    block, which holds all N0 rows.  Bit-identical selection semantics to the
+    dense path (first-index tie-breaks preserved by the strict `>` merge).
 
     With `H`/`F` set this is the STREAMING GUIDED matcher: the reprojection /
     epipolar gates are computed per loc1 block inside the scan, so the
-    [N0, N1] gate matrices are never materialized either."""
+    [N0, N1] gate matrices are never materialized either.
+
+    Returns per-row (best, second) similarities [N0], the best column [N0],
+    and each column's best row [N1] (None without `cfg.mutual_best`)."""
     Bc = cfg.block_size
     n0, n1 = d0.shape[0], d1.shape[0]
     pad = (-n1) % Bc
     if _is_u8(d0, d1):
-        # integer MXU path: per-block exact bf16 dots + rn epilogue.
+        # integer path: per-block exact bf16 dots + rn epilogue.
         parts0 = _u8_parts(d0)
         b1, rn1 = _u8_parts(d1)
         if pad:  # zero-pads give finite sims; mask1 padding kills them below
@@ -248,7 +249,7 @@ def _match_streaming(
     offs = jnp.arange(nb, dtype=jnp.int32) * Bc
     (bsim, ssim, best_j), cols = jax.lax.scan(step, init, (d1b, m1b, l1b, offs))
     col_best_i = cols.reshape(nb * Bc)[:n1] if cfg.mutual_best else None
-    return _finalize(bsim, ssim, best_j, col_best_i, cfg)
+    return bsim, ssim, best_j, col_best_i
 
 
 def _similarities(d0, d1):
@@ -284,11 +285,6 @@ def match_descriptors_impl(
         mask0 = jnp.ones(d0.shape[0], bool)
     if mask1 is None:
         mask1 = jnp.ones(d1.shape[0], bool)
-    if _is_u8(d0, d1) and cfg.use_pallas and jax.default_backend() != "cpu":
-        # the fused kernel subsumes BOTH dense and streaming: O(N0 + N1)
-        # HBM traffic regardless of size (choosing per-call is per-shape
-        # jit anyway, so there is no policy to tune here)
-        return _fused_select(d0, d1, mask0, mask1, cfg)
     bs = _effective_block(cfg, d1.shape[0])
     if bs:
         return _match_streaming(d0, d1, mask0, mask1, cfg.replace(block_size=bs))
@@ -313,8 +309,7 @@ def match_descriptors_batch(
 ) -> MatchResult:
     """Batched pairwise matching: d0, d1 [P, N, 128] -> MatchResult with a
     leading pair axis.  One dispatch for P pairs — the consecutive-frame case
-    of the SLAM loop and benchmark (dispatch latency dominates the ~0.2 ms
-    marginal matmul cost of a single 2048^2 pair on this platform)."""
+    of the SLAM loop and benchmark."""
     if mask0 is None:
         mask0 = jnp.ones(d0.shape[:2], bool)
     if mask1 is None:
@@ -327,11 +322,12 @@ def match_descriptors_batch(
 def _h_parts(loc0, H):
     """Per-row homography operands: loc0 projected through H -> (px, py).
 
-    The O(N0 x N1) gate then decomposes into rank-1 broadcasts — the form
-    the fused kernel consumes (`ops/match_kernel.py` guided variant)."""
+    The O(N0 x N1) gate then decomposes into rank-1 broadcasts.  The
+    3-term products run at HIGHEST: pixel coordinates in TF32 would move
+    a projection by ~0.1 px at 1080p."""
     loc0 = loc0.astype(jnp.float32)
     ones = jnp.ones((loc0.shape[0], 1), jnp.float32)
-    p = jnp.concatenate([loc0, ones], axis=1) @ H.T
+    p = jnp.dot(jnp.concatenate([loc0, ones], axis=1), H.T, precision=_HI)
     z = p[:, 2:]
     p = p[:, :2] / jnp.maximum(jnp.abs(z), 1e-12) * jnp.sign(z)
     return p[:, 0], p[:, 1]
@@ -342,7 +338,8 @@ def _f_parts_rows(loc0, F):
     (la = F x0 / |la_xy|) plus raw loc0 — row side of the symmetric gate."""
     loc0 = loc0.astype(jnp.float32)
     ones = jnp.ones((loc0.shape[0], 1), jnp.float32)
-    l1 = jnp.concatenate([loc0, ones], axis=1) @ F.T      # [N0, 3]
+    l1 = jnp.dot(jnp.concatenate([loc0, ones], axis=1), F.T,
+                 precision=_HI)                            # [N0, 3]
     den = jnp.sqrt(l1[:, 0] ** 2 + l1[:, 1] ** 2)
     la = l1 / jnp.maximum(den, 1e-12)[:, None]
     return la[:, 0], la[:, 1], la[:, 2], loc0[:, 0], loc0[:, 1]
@@ -352,7 +349,8 @@ def _f_parts_cols(loc1, F):
     """Per-column epipolar operands: loc1's normalized epiline in image 0."""
     loc1 = loc1.astype(jnp.float32)
     ones = jnp.ones((loc1.shape[0], 1), jnp.float32)
-    l0 = jnp.concatenate([loc1, ones], axis=1) @ F        # [N1, 3]
+    l0 = jnp.dot(jnp.concatenate([loc1, ones], axis=1), F,
+                 precision=_HI)                            # [N1, 3]
     den = jnp.sqrt(l0[:, 0] ** 2 + l0[:, 1] ** 2)
     lb = l0 / jnp.maximum(den, 1e-12)[:, None]
     return lb[:, 0], lb[:, 1], lb[:, 2]
@@ -361,8 +359,7 @@ def _f_parts_cols(loc1, F):
 def _homography_gate(loc0, loc1, H, hdist_max):
     """Squared reprojection gate |H x0 - x1|^2 < hdist_max^2. -> [N0, N1] bool.
 
-    Built from `_h_parts` with the same elementary-op order as the fused
-    kernel (bit-parity contract for the guided selection)."""
+    Built from `_h_parts` (the dense and streaming paths share it)."""
     px, py = _h_parts(loc0, H)
     loc1 = loc1.astype(jnp.float32)
     dx = px[:, None] - loc1[None, :, 0]
@@ -375,8 +372,7 @@ def _epipolar_gate(loc0, loc1, F, fdist_max):
 
     max(|la . x1|, |x0 . lb|) with PRE-normalized lines (`_f_parts_*`) —
     algebraically the classic num/den form, restructured so every pairwise
-    term is a rank-1 broadcast (the fused kernel computes the identical
-    expression per tile)."""
+    term is a rank-1 broadcast."""
     la_x, la_y, la_z, x0x, x0y = _f_parts_rows(loc0, F)
     lb_x, lb_y, lb_z = _f_parts_cols(loc1, F)
     loc1 = loc1.astype(jnp.float32)
@@ -386,38 +382,6 @@ def _epipolar_gate(loc0, loc1, F, fdist_max):
     d_b = jnp.abs(x0x[:, None] * lb_x[None, :]
                   + x0y[:, None] * lb_y[None, :] + lb_z[None, :])
     return jnp.maximum(d_a, d_b) < fdist_max
-
-
-def _fused_guided(d0, d1, loc0, loc1, H, F, mask0, mask1,
-                  hdist_max, fdist_max, cfg: MatchConfig) -> MatchResult:
-    """Guided matching through the fused Pallas kernel: the H/F gates are
-    computed per tile in VMEM from O(N) projected operands and folded into
-    the validity mask before the best-2 reduction — neither the [N0, N1]
-    similarity NOR the gate matrices ever reach HBM (the
-    `MultiplyDescriptorG` fusion, SURVEY.md §2.4 item 8 ⚠)."""
-    from ..ops.match_kernel import match_best2
-
-    _, rn0 = _u8_parts(d0)
-    _, rn1 = _u8_parts(d1)
-    loc0 = jnp.asarray(loc0, jnp.float32)
-    loc1 = jnp.asarray(loc1, jnp.float32)
-    gate = ""
-    rows, cols = [], []
-    if H is not None:
-        gate += "h"
-        rows += list(_h_parts(loc0, jnp.asarray(H, jnp.float32)))
-    if F is not None:
-        gate += "f"
-        rows += list(_f_parts_rows(loc0, jnp.asarray(F, jnp.float32)))
-    cols += [loc1[:, 0], loc1[:, 1]]
-    if F is not None:
-        cols += list(_f_parts_cols(loc1, jnp.asarray(F, jnp.float32)))
-    bs, ss, bj, ci = match_best2(
-        d0, d1, rn0, rn1, mask0, mask1,
-        gate=gate, gate_rows=rows, gate_cols=cols,
-        h2=float(hdist_max) * float(hdist_max), fthr=float(fdist_max),
-    )
-    return _finalize(bs, ss, bj, ci if cfg.mutual_best else None, cfg)
 
 
 @partial(jax.jit, static_argnums=(8, 9, 10))
@@ -436,12 +400,6 @@ def guided_match_descriptors(
         mask0 = jnp.ones(d0.shape[0], bool)
     if mask1 is None:
         mask1 = jnp.ones(d1.shape[0], bool)
-    if (_is_u8(d0, d1) and cfg.use_pallas and (H is not None or F is not None)
-            and jax.default_backend() != "cpu"):
-        # gating fused into the match kernel itself (MultiplyDescriptorG):
-        # O(N0 + N1) HBM regardless of size, same as the plain fused path
-        return _fused_guided(d0, d1, loc0, loc1, H, F, mask0, mask1,
-                             hdist_max, fdist_max, cfg)
     bs = _effective_block(cfg, d1.shape[0])
     if bs:
         Hj = None if H is None else jnp.asarray(H, jnp.float32)

@@ -1,6 +1,6 @@
 """Orientation assignment: 36-bin gradient histogram, <=2 peaks >= 80% of max.
 
-TPU-native replacement for `ProgramCU::ComputeOrient` (SURVEY.md §2.4 item 5 ⚠)
+Replacement for `ProgramCU::ComputeOrient` (SURVEY.md §2.4 item 5 ⚠)
 and for `SiftPyramid::ReshapeFeatureListCPU`: the reference downloads keypoints
 to the host to split multi-orientation features; here every keypoint statically
 owns `max_orientations` slots and the split is just a validity mask — no
@@ -9,7 +9,7 @@ device->host round trip (SURVEY §3.1).
 Static-shape strategy: a fixed (2R+1)^2 window (R covers the max refined sigma)
 is gathered per keypoint with `dynamic_slice`; the per-keypoint circular
 support and Gaussian weight are applied as masks.  Histogram accumulation is a
-chunked one-hot contraction (MXU work, no scatter).
+chunked one-hot contraction (no scatter).
 """
 
 from __future__ import annotations
@@ -22,9 +22,28 @@ import jax.numpy as jnp
 from ..core.config import SiftConfig
 from .detect import OctaveKeypoints
 
-__all__ = ["GradStack", "gradient_stack", "compute_orientations"]
+__all__ = ["GradStack", "gradient_stack", "compute_orientations", "exp_window"]
 
 _TWO_PI = 6.283185307179586
+
+# degree-7 least-squares fit of exp(x) on [-4.75, 0] (abs err <= 6.3e-5,
+# rel err at the in-circle extreme x = -rad_f^2/2 = -4.5: 0.2%).  A window
+# weight needs no exp-grade accuracy; the NumPy oracle keeps true exp.
+_EXPW = (
+    2.1755081222e-05, 5.1727565826e-04, 5.5559910437e-03, 3.6198773900e-02,
+    1.6038511456e-01, 4.9620069315e-01, 9.9901960879e-01, 9.9993781360e-01,
+)
+
+
+def exp_window(x):
+    """Polynomial stand-in for exp(x) on the Gaussian-window range
+    [-rad_f^2/2, 0]; inputs are clamped (out-of-circle pixels evaluate it
+    too before their mask applies, at arbitrarily negative x)."""
+    x = jnp.maximum(x, -4.75)
+    acc = jnp.full_like(x, _EXPW[0])
+    for c in _EXPW[1:]:
+        acc = acc * x + c
+    return acc
 
 
 class GradStack(NamedTuple):
@@ -43,43 +62,14 @@ class GradStack(NamedTuple):
     global_h: int      # full-image height at this octave
 
 
-def _pick_grad_impl(cfg: SiftConfig) -> str:
-    if not cfg.use_pallas:
-        return "xla"
-    try:
-        return "xla" if jax.default_backend() == "cpu" else "pallas"
-    except Exception:
-        return "xla"
-
-
 def gradient_stack(
     gauss: jax.Array, cfg: SiftConfig, y0: jax.Array | None = None,
-    global_h: int | None = None, impl: str | None = None,
+    global_h: int | None = None,
 ) -> GradStack:
-    """gauss: [B, S+3, H, W] -> central-difference grads of levels 1..S.
-
-    `impl`: "xla" | "pallas" | "pallas_interpret" (default auto: the fused
-    Pallas stencil on accelerators — ops/grad_stencil.py, bit-identical)."""
+    """gauss: [B, S+3, H, W] -> central-difference grads of levels 1..S."""
     g = gauss[:, 1 : cfg.dog_levels + 1].astype(jnp.float32)
     B, S, H, W = g.shape
 
-    impl = impl or _pick_grad_impl(cfg)
-    if impl.startswith("pallas"):
-        from ..ops.grad_stencil import grad_stencil
-        from ..ops.kp_engine import window_geometry
-
-        win = 2 * cfg.orient_window_radius + 1
-        _, win_y, win_x, _, _ = window_geometry(cfg)
-        gx, gy = grad_stencil(
-            g, y0=y0, global_h=global_h,
-            min_h=max(win, win_y), min_w=max(win, win_x),
-            interpret=(impl == "pallas_interpret"),
-        )
-        return GradStack(
-            gx=gx, gy=gy, h=H, w=W,
-            y0=jnp.zeros((), jnp.int32) if y0 is None else y0,
-            global_h=H if global_h is None else global_h,
-        )
     gp = jnp.pad(g, ((0, 0), (0, 0), (1, 1), (1, 1)), mode="edge")
     gx = 0.5 * (gp[:, :, 1 : H + 1, 2:] - gp[:, :, 1 : H + 1, :W])
     gy = 0.5 * (gp[:, :, 2:, 1 : W + 1] - gp[:, :, :H, 1 : W + 1])
@@ -102,13 +92,11 @@ def gradient_stack(
     if ph or pw:
         gx = jnp.pad(gx, ((0, 0), (0, 0), (0, ph), (0, pw)))
         gy = jnp.pad(gy, ((0, 0), (0, 0), (0, ph), (0, pw)))
-    # bf16 storage (same round-to-nearest as the Pallas stencil — the
-    # stencil parity test stays bit-exact): halves the stack's HBM
-    # footprint and the keypoint engine's window-DMA traffic; consumers
-    # upcast to f32 at the gather/window boundary so all accumulation
-    # stays f32
+    # f32 storage: rounding the planes to bf16 turns last-bit differences of
+    # the pyramid (another summation order on another device) into 2^-8
+    # steps, which moved an ill-placed keypoint's descriptor by 3 uint8 steps
     return GradStack(
-        gx=gx.astype(jnp.bfloat16), gy=gy.astype(jnp.bfloat16), h=H, w=W,
+        gx=gx, gy=gy, h=H, w=W,
         y0=jnp.zeros((), jnp.int32) if y0 is None else y0,
         global_h=H if global_h is None else global_h,
     )
@@ -163,10 +151,8 @@ def compute_orientations(
         return jax.lax.dynamic_slice(g_b, (l1, y1, x1), (1, win, win))[0]
 
     gather = jax.vmap(jax.vmap(slice_one, in_axes=(None, 0, 0, 0)))
-    # upcast at the gather boundary: the stack is bf16 storage, all window
-    # math runs f32 (same contract as the fused kernel)
-    wx = gather(grads.gx, lvl, sy, sx).astype(jnp.float32)    # [B, K, win, win]
-    wy = gather(grads.gy, lvl, sy, sx).astype(jnp.float32)
+    wx = gather(grads.gx, lvl, sy, sx)                        # [B, K, win, win]
+    wy = gather(grads.gy, lvl, sy, sx)
 
     # true offsets of each window pixel from the refined center
     ar = jnp.arange(win, dtype=jnp.float32)
@@ -176,10 +162,6 @@ def compute_orientations(
 
     sw = cfg.orientation_sigma_factor * kp.sigma              # [B, K]
     radius = cfg.orientation_radius_factor * sw
-    # same polynomial window as the Pallas kernel (ops/kp_engine.exp_window)
-    # so cross-backend orientation parity stays tight; see its rationale
-    from ..ops.kp_engine import exp_window
-
     wgt = exp_window(-r2 / (2.0 * (sw**2)[..., None, None]))
     wgt = jnp.where(r2 <= (radius**2)[..., None, None], wgt, 0.0)
     # exclude pixels outside the TRUE image (no-op single chip; exact for

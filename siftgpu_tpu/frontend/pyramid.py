@@ -1,13 +1,12 @@
-"""Gaussian / DoG pyramid on batched HBM image tensors.
+"""Gaussian / DoG pyramid on batched device image tensors.
 
-TPU-native replacement for the reference's texture-pyramid build loop
+Replacement for the reference's texture-pyramid build loop
 (`PyramidCU::BuildPyramid` / `ProgramCU::FilterH/FilterV`, SURVEY.md §3.1 hot
 loop 1 ⚠).  One XLA path instead of four shader backends: separable Gaussian
-blurs as layout-aligned banded matmuls on accelerators (`lax.conv` with
-replicate padding on CPU — C=1 convs run ~30x off bandwidth on TPU), octave
-o+1 seeded by 2x decimation of Gaussian level S.  Filter taps come from
-`core.scalespace.gaussian_taps` — the same NumPy taps the CPU oracle convolves
-with, so pyramid parity is exact up to float associativity.
+blurs as banded matmuls at HIGHEST precision (replicate padding folded into
+the band), octave o+1 seeded by 2x decimation of Gaussian level S.  Filter
+taps come from `core.scalespace.gaussian_taps` — the same NumPy taps the CPU
+oracle convolves with, so pyramid parity is exact up to float associativity.
 
 All shapes are static functions of `SiftConfig`; octaves are a Python tuple of
 per-octave arrays (different static shapes), traced once under `jit`.
@@ -31,29 +30,6 @@ class Octave(NamedTuple):
     dog: jax.Array    # [B, S+2, H, W]
 
 
-def _conv1d(x: jax.Array, taps: jax.Array, axis: int) -> jax.Array:
-    """Convolve [B, H, W] along `axis` (1=rows/H, 2=cols/W) with replicate pad."""
-    r = (taps.shape[0] - 1) // 2
-    pad = [(0, 0), (0, 0), (0, 0)]
-    pad[axis] = (r, r)
-    xp = jnp.pad(x, pad, mode="edge")
-    # NCHW conv with C=1
-    xp = xp[:, None, :, :]
-    if axis == 2:
-        k = taps.reshape(1, 1, 1, -1)
-    else:
-        k = taps.reshape(1, 1, -1, 1)
-    # HIGHEST precision: the TPU default (bf16 passes) loses ~4e-3 absolute,
-    # which swamps the DoG contrast threshold (~6.7e-3) and breaks parity.
-    y = jax.lax.conv_general_dilated(
-        xp, k, window_strides=(1, 1), padding="VALID",
-        dimension_numbers=("NCHW", "OIHW", "NCHW"),
-        preferred_element_type=xp.dtype,
-        precision=jax.lax.Precision.HIGHEST,
-    )
-    return y[:, 0]
-
-
 def _band_matrix(n: int, taps: jax.Array, dtype) -> jax.Array:
     """[n, n] banded convolution matrix with replicate-padding folded into the
     boundary rows: out = B @ x  <=>  1-D conv with edge clamping.
@@ -69,24 +45,16 @@ def _band_matrix(n: int, taps: jax.Array, dtype) -> jax.Array:
     return out
 
 
-_TB = 128           # output tile per blocked-band matmul (128 beat 256/512
-                    # at 4K on v5e: denser band -> half the wasted MXU FLOPs)
+_TB = 128           # output tile per blocked-band matmul
 _BLOCK_MIN = 512    # use blocked banded matmuls above this dimension
-
-# 3-pass bf16 ("HIGH") vs 6-pass ("HIGHEST") f32 matmul emulation: HIGH
-# leaves <= 2e-5 absolute DoG error (300x below the contrast threshold;
-# the bf16 default's 4e-3 is what breaks parity) and runs ~20% faster at 4K.
-_PRECISIONS = {
-    "high": jax.lax.Precision.HIGH,
-    "highest": jax.lax.Precision.HIGHEST,
-}
+# f32 all the way: a TF32 blur leaves ~5.6e-4 absolute DoG error on the
+# H100, against a DoG contrast pre-threshold of 0.8 * 6.7e-3 (PERF.md)
+_HI = jax.lax.Precision.HIGHEST
 
 
 def _blur_rows_blocked(x: jax.Array, taps: jax.Array, hi) -> jax.Array:
-    # Same layout discipline as _blur_cols_blocked, for the SUBLANE axis: an
-    # edge-extension concat at row offset r (not 8-sublane-aligned) shuffles
-    # every vreg; an 8-aligned replicated apron is a plain copy, and each
-    # output tile contracts an aligned contiguous row window.
+    # Same scheme as _blur_cols_blocked along rows: a replicated apron of
+    # R >= r rows, and each output tile contracts a contiguous row window.
     B, H, W = x.shape
     r = (taps.shape[0] - 1) // 2
     R = -(-r // 8) * 8                  # 8-aligned apron rows
@@ -114,14 +82,9 @@ def _blur_rows_blocked(x: jax.Array, taps: jax.Array, hi) -> jax.Array:
 
 
 def _blur_cols_blocked(x: jax.Array, taps: jax.Array, hi) -> jax.Array:
-    # Lane-layout-friendly formulation.  Two traps the earlier versions hit:
-    # a [B, H, nt*TB] -> [B, H, nt, TB] reshape SPLITS the lane dim (whole-
-    # array relayout, 10x+ off bandwidth), and an edge-extension concat at
-    # lane offset r (= tap radius, not 128-aligned) lane-SHIFTS the whole
-    # body.  Here the extension replicates a full 128-lane apron (aligned
-    # concat = plain full-bandwidth copy) and each output tile contracts a
-    # CONTIGUOUS, 128-aligned 3*TB-lane window against one [3*TB, TB] band
-    # matrix; the lane-aligned concat of tiles fuses into the output write.
+    # The extension replicates a full TB-column apron on each side and each
+    # output tile contracts a contiguous 3*TB-column window against one
+    # [3*TB, TB] band matrix; the concat of tiles fuses into the output.
     B, H, W = x.shape
     r = (taps.shape[0] - 1) // 2
     assert r <= _TB
@@ -147,98 +110,31 @@ def _blur_cols_blocked(x: jax.Array, taps: jax.Array, hi) -> jax.Array:
     return jnp.concatenate(tiles, axis=2)[:, :, :W]
 
 
-def _blur_matmul(x: jax.Array, taps: jax.Array, precision: str) -> jax.Array:
-    """Separable blur as two banded matmuls — MXU work.  XLA's C=1 convs and
-    lane-shifted adds both run ~30x off bandwidth on TPU (636 ms for a 1080p
-    pyramid); banded matmuls run at MXU speed.  Large dimensions use the
-    blocked form (`_band_block`), small ones the full [n, n] band matrix
-    (identical nonzero terms in the same order — results match exactly)."""
-    B, H, W = x.shape
-    hi = _PRECISIONS[precision]
-    if H > _BLOCK_MIN:
-        y = _blur_rows_blocked(x, taps, hi)
-    else:
-        th = _band_matrix(H, taps, x.dtype)
-        y = jnp.einsum("ij,bjw->biw", th, x, precision=hi)
-    if W > _BLOCK_MIN:
-        return _blur_cols_blocked(y, taps, hi)
-    tw = _band_matrix(W, taps, x.dtype)
-    return jnp.einsum("biw,vw->biv", y, tw, precision=hi)
+def blur_separable(x: jax.Array, taps: np.ndarray) -> jax.Array:
+    """Separable Gaussian blur of [B, H, W] with replicate padding, as two
+    banded matmuls at HIGHEST precision.  Large dimensions use the blocked
+    form (`_blur_rows_blocked` / `_blur_cols_blocked`), small ones the full
+    [n, n] band matrix.
 
-
-def _use_matmul_blur() -> bool:
-    try:
-        return jax.default_backend() != "cpu"
-    except Exception:
-        return False
-
-
-def blur_separable(
-    x: jax.Array, taps: np.ndarray, force=None, precision: str = "high"
-) -> jax.Array:
-    """Separable Gaussian blur of [B, H, W] with replicate padding.
-
-    Two mathematically identical implementations: banded matmuls on
-    accelerators (MXU), explicit convs on CPU (`force`: "conv" | "matmul").
-    `precision` selects the f32 matmul emulation ("high" = 3-pass bf16,
-    <= 2e-5 abs error; "highest" = 6-pass) — the conv path is always exact."""
+    On the H100 this beats `lax.conv` at HIGHEST by 30% for the 4K pyramid
+    (4.46 vs 6.42 ms) and ties it at 640x480, agreeing with it within
+    5.4e-7 on every DoG plane (PERF.md)."""
     t = jnp.asarray(taps, dtype=x.dtype)
-    mode = force or ("matmul" if _use_matmul_blur() else "conv")
-    if mode == "matmul":
-        return _blur_matmul(x, t, precision)
-    return _conv1d(_conv1d(x, t, 2), t, 1)
+    B, H, W = x.shape
+    if H > _BLOCK_MIN:
+        y = _blur_rows_blocked(x, t, _HI)
+    else:
+        th = _band_matrix(H, t, x.dtype)
+        y = jnp.einsum("ij,bjw->biw", th, x, precision=_HI)
+    if W > _BLOCK_MIN:
+        return _blur_cols_blocked(y, t, _HI)
+    tw = _band_matrix(W, t, x.dtype)
+    return jnp.einsum("biw,vw->biv", y, tw, precision=_HI)
 
 
-def _decimate_axis_matmul(x: jax.Array, axis: int,
-                          precision: str = "highest") -> jax.Array:
-    """Even-index selection along `axis` as a one-hot matmul (MXU).
-
-    A 0/1 selection matrix at HIGHEST precision reproduces x[::2] bit-for-bit
-    (each output is 1.0 * x[2i] + zeros); strided memory ops are slow on TPU,
-    one-hot matmuls are fast.  At "high" the selection passes through the
-    3-term bf16 split (~2^-16 relative error) — the same error class the
-    pyramid's HIGH blurs already carry, at half the MXU passes (the v5e has
-    no native f32 matmul; f32 is emulated by bf16 passes)."""
-    n = x.shape[axis]
-    n_out = (n + 1) // 2
-    hi = _PRECISIONS[precision]
-    if n <= _BLOCK_MIN:
-        ii = jax.lax.broadcasted_iota(jnp.int32, (n_out, n), 0)
-        jj = jax.lax.broadcasted_iota(jnp.int32, (n_out, n), 1)
-        E = (jj == 2 * ii).astype(x.dtype)
-        eq = "ij,bjw->biw" if axis == 1 else "ij,bhj->bhi"
-        return jnp.einsum(eq, E, x, precision=hi)
-    TI = 2 * _TB
-    nt = -(-n // TI)
-    pad = [(0, 0)] * 3
-    pad[axis] = (0, nt * TI - n)
-    xp = jnp.pad(x, pad)
-    ii = jax.lax.broadcasted_iota(jnp.int32, (_TB, TI), 0)
-    jj = jax.lax.broadcasted_iota(jnp.int32, (_TB, TI), 1)
-    E0 = (jj == 2 * ii).astype(x.dtype)
-    if axis == 1:
-        xt = xp.reshape(x.shape[0], nt, TI, x.shape[2])
-        y = jnp.einsum("ij,btjw->btiw", E0, xt, precision=hi)
-        return y.reshape(x.shape[0], nt * _TB, x.shape[2])[:, :n_out]
-    xt = xp.reshape(x.shape[0], x.shape[1], nt, TI)
-    y = jnp.einsum("ij,bhtj->bhti", E0, xt, precision=hi)
-    return y.reshape(x.shape[0], x.shape[1], nt * _TB)[:, :, :n_out]
-
-
-def downsample2x(x: jax.Array, force=None,
-                 precision: str = "highest") -> jax.Array:
-    """Top-left 2x decimation (matches oracle `gauss[S][::2, ::2]`).
-
-    Accelerators: exact one-hot selection matmuls (see
-    `_decimate_axis_matmul`).  CPU (or `force="window"`): a 1x1-window
-    stride-2 reduce_window — the lane-strided slice `x[:, ::2, ::2]` runs
-    ~10x off bandwidth on TPU (25 ms at 4K) and XLA re-fuses it into every
-    consumer; both paths pick the identical top-left element."""
-    mode = force or ("matmul" if _use_matmul_blur() else "window")
-    if mode == "matmul":
-        return _decimate_axis_matmul(
-            _decimate_axis_matmul(x, 1, precision), 2, precision
-        )
+def downsample2x(x: jax.Array) -> jax.Array:
+    """Top-left 2x decimation (matches oracle `gauss[S][::2, ::2]`): a
+    1x1-window stride-2 reduce_window."""
     return jax.lax.reduce_window(
         x, -jnp.inf, jax.lax.max,
         window_dimensions=(1, 1, 1), window_strides=(1, 2, 2), padding="VALID",
@@ -251,58 +147,19 @@ def upsample2x(x: jax.Array) -> jax.Array:
     return jax.image.resize(x, (b, 2 * h, 2 * w), method="linear")
 
 
-def _octave_levels(base: jax.Array, cfg: SiftConfig, impl: str) -> Octave:
-    """One octave's (gauss, dog) from its base level.
-
-    `impl`: "fused" = the fused Pallas slab kernel (ops/pyramid_kernel.py —
-    all levels + DoGs in VMEM, one HBM write per plane; accelerators),
-    "fused_interpret" for its interpret-mode parity tests, anything else =
-    the sequential per-level `blur_separable` chain (CPU / golden route)."""
-    inc = cfg.incremental_sigmas()
-    if impl.startswith("fused"):
-        from ..ops.pyramid_kernel import blur_octave_fused
-
-        taps_list = [cfg.gaussian_taps(float(s)) for s in inc]
-        gauss, dog = blur_octave_fused(
-            base, taps_list, interpret=(impl == "fused_interpret")
-        )
-        return Octave(gauss=gauss, dog=dog)
-    prec = cfg.pyramid_precision
+def _octave_levels(base: jax.Array, cfg: SiftConfig) -> Octave:
+    """One octave's (gauss, dog) from its base level: the sequential
+    per-level `blur_separable` chain."""
     levels = [base]
-    for s in inc:
-        levels.append(
-            blur_separable(levels[-1], cfg.gaussian_taps(float(s)),
-                           precision=prec)
-        )
+    for s in cfg.incremental_sigmas():
+        levels.append(blur_separable(levels[-1], cfg.gaussian_taps(float(s))))
     gauss = jnp.stack(levels, axis=1)          # [B, S+3, H, W]
     dog = gauss[:, 1:] - gauss[:, :-1]         # [B, S+2, H, W]
     return Octave(gauss=gauss, dog=dog)
 
 
-def _pick_octave_impl(cfg: SiftConfig) -> str:
-    """Default: the XLA banded-matmul chain everywhere.
-
-    The fused Pallas octave kernel (ops/pyramid_kernel.py) was built and
-    measured in round 5 hoping to drop the ~13 per-octave HBM round trips:
-    it is numerically right (ulp-class parity tests) but SLOWER on v5e —
-    4K pyramid 6.09 ms fused vs 4.50 XLA (640x480 b4: 1.71 vs ~1.1), and a
-    TH/TW tile sweep (128/192 x 128/256/512) only made it worse (6.1-7.7).
-    The grid step decomposes into ~100 small [224,384]x[384,128]-class MXU
-    dots whose per-dot setup dominates the saved traffic; larger tiles pay
-    band-padding FLOPs faster than they amortize setup.  Kept behind
-    `octave_impl="fused"` with its parity tests as a documented negative
-    result."""
-    return "xla"
-
-
-def build_pyramid(
-    images: jax.Array, cfg: SiftConfig, octave_impl: str | None = None
-) -> Tuple[Octave, ...]:
-    """images: [B, H, W] grayscale in [0, 1]. Returns per-octave (gauss, dog).
-
-    `octave_impl` overrides the per-octave level builder ("fused" |
-    "fused_interpret" | "xla"; default auto — fused Pallas on accelerators,
-    XLA banded matmuls / convs on CPU)."""
+def build_pyramid(images: jax.Array, cfg: SiftConfig) -> Tuple[Octave, ...]:
+    """images: [B, H, W] grayscale in [0, 1]. Returns per-octave (gauss, dog)."""
     x = images.astype(jnp.dtype(cfg.pyramid_dtype))
     if cfg.upsampled:
         x = upsample2x(x)
@@ -312,19 +169,10 @@ def build_pyramid(
         # then maps octave-local coords back to INPUT-image coordinates.
         for _ in range(cfg.first_octave):
             x = downsample2x(x)
-    impl = octave_impl or _pick_octave_impl(cfg)
-    base = blur_separable(
-        x, cfg.gaussian_taps(cfg.initial_blur_sigma()),
-        precision=cfg.pyramid_precision,
-    )
+    base = blur_separable(x, cfg.gaussian_taps(cfg.initial_blur_sigma()))
     octaves: List[Octave] = []
     for o in range(cfg.octaves):
-        oc = _octave_levels(base, cfg, impl)
+        oc = _octave_levels(base, cfg)
         octaves.append(oc)
-        # decimation stays at its default HIGHEST precision: the obo and
-        # spatially-sharded builders decimate the same level, and all paths
-        # must produce identical octave bases (measured: the cheaper 3-pass
-        # selection bought nothing here anyway — decimation is not
-        # MXU-pass-bound)
         base = downsample2x(oc.gauss[:, cfg.dog_levels])
     return tuple(octaves)

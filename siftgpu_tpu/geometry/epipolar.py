@@ -1,7 +1,7 @@
 """Two-view epipolar geometry: 8-point essential/fundamental + RANSAC.
 
 New capability vs the reference (SURVEY.md §7: the SfM back end the north star
-adds on top of SiftGPU).  TPU-first RANSAC (SURVEY §7.4 item 6): a STATIC
+adds on top of SiftGPU).  Fixed-shape RANSAC (SURVEY §7.4 item 6): a STATIC
 number of hypotheses evaluated in parallel under `vmap` — no early exit, no
 dynamic shapes; masked correspondences never contribute to scores.
 
@@ -43,7 +43,7 @@ def eight_point(x0: jax.Array, x1: jax.Array, w: jax.Array) -> jax.Array:
 
     Returns E (3x3) with the essential constraint (two equal singular values,
     third zero) enforced.  Uses Hartley normalization + smallest eigenvector
-    of A^T A (9x9 eigh — TPU-friendly, no [N, 9] SVD).
+    of A^T A (9x9 eigh — fixed small shape, no [N, 9] SVD).
     """
     x0n, T0 = _normalize_for_dlt(x0, w)
     x1n, T1 = _normalize_for_dlt(x1, w)

@@ -1,7 +1,7 @@
 """Golden CPU oracle: naive NumPy SIFT, obviously correct, deliberately slow.
 
 This is the in-repo parity reference (SURVEY.md §4 item 1): the reference mount
-is empty, so algorithmic ground truth is defined HERE and the TPU path is tested
+is empty, so algorithmic ground truth is defined HERE and the JAX path is tested
 against it.  The algorithm follows the canonical SiftGPU/Lowe pipeline
 (SURVEY.md §2.1, §3.1 ⚠):
 
@@ -11,7 +11,7 @@ against it.  The algorithm follows the canonical SiftGPU/Lowe pipeline
   rotated 16x16 bilinear sample grid with trilinear (4x4 spatial x 8
   orientation) binning -> normalize, clip 0.2, renormalize, uint8 quantize.
 
-Conventions pinned here (the TPU path must match bit-for-bit up to float
+Conventions pinned here (the JAX path must match bit-for-bit up to float
 associativity):
   - replicate ("edge") padding for all convolutions (GL clamp-to-edge analog);
   - octave o+1 seeded by 2x decimation (top-left pixel) of gaussian level S;
@@ -182,7 +182,7 @@ def detect_keypoints(pyr, cfg: SiftConfig):
                             continue
                         # clamp the LEVEL offset to +-0.5: beyond that the
                         # extremum belongs to the adjacent slice, and the
-                        # static TPU windows are sized for sigma up to
+                        # static JAX windows are sized for sigma up to
                         # sigma0 * 2^((S+0.5)/S) (scalespace.max_detect_sigma)
                         off[0] = np.clip(off[0], -0.5, 0.5)
                     else:

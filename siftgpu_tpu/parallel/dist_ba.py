@@ -1,11 +1,11 @@
 """Distributed bundle adjustment: map-block partitioning + psum'd Schur solve.
 
-TPU-native replacement for the reference's entire "distributed backend"
+Replacement for the reference's entire "distributed backend"
 (`ServerSiftGPU` TCP RPC, SURVEY.md §2.2/§5.8 ⚠): no RPC layer — SPMD over a
 mesh axis.  Points and their observations are partitioned into per-device
 blocks (camera-locality partitioning, SURVEY §7.4 item 4); cameras are
 replicated.  Each LM/CG step needs exactly one `psum` of the camera-side
-partials over ICI/DCN; point marginalization (H_pp^-1) stays shard-local.
+partials over the device interconnect; point marginalization (H_pp^-1) stays shard-local.
 """
 
 from __future__ import annotations

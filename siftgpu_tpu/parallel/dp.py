@@ -29,7 +29,7 @@ def extract_features_dp(
     Uses `shard_map` rather than jit+sharding annotations: extraction is
     purely batch-parallel, but the SPMD partitioner all-gathers every
     `lax.top_k` operand over the batch axis (TopK/Sort partitioning
-    limitation — verified from the optimized HLO, scripts/scaling.py),
+    limitation, seen in the optimized HLO),
     duplicating the sort on every device.  shard_map runs the whole program
     on the local batch: ZERO collectives, exact same outputs."""
     from . import multihost

@@ -2,7 +2,7 @@
 
 The reference's distribution layer was a TCP RPC server (`ServerSiftGPU`,
 SURVEY.md §2.2/§5.8 ⚠) that shipped descriptors between processes by hand.
-The TPU-native pipeline is SPMD instead: every process runs the identical
+This pipeline is SPMD instead: every process runs the identical
 Python program over one GLOBAL mesh (`jax.distributed.initialize`), and the
 only cross-process traffic is the collectives XLA inserts.  That leaves one
 mechanical obligation, handled here: host-side numpy state (which every

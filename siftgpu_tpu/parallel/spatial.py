@@ -7,7 +7,7 @@ processed exactly:
 
   per octave:
     1. each shard re-exchanges a fixed `halo` of boundary rows with its ring
-       neighbors via `lax.ppermute` (ICI traffic only);
+       neighbors via `lax.ppermute` (device-to-device traffic only);
     2. global image-boundary shards emulate replicate padding by re-clamping
        their outer halo after EVERY blur (this makes edge-shard halos exact,
        not approximate);
@@ -112,14 +112,13 @@ def _octave_levels(
     x = base
     if first:
         x = pyramid.blur_separable(
-            x, cfg.gaussian_taps(cfg.initial_blur_sigma()),
-            precision=cfg.pyramid_precision,
+            x, cfg.gaussian_taps(cfg.initial_blur_sigma())
         )
         x = _reclamp(x, h, idx, n)
     levels.append(x)
     for s in cfg.incremental_sigmas():
         x = pyramid.blur_separable(
-            x, cfg.gaussian_taps(float(s)), precision=cfg.pyramid_precision
+            x, cfg.gaussian_taps(float(s))
         )
         x = _reclamp(x, h, idx, n)
         levels.append(x)
@@ -189,15 +188,13 @@ def extract_features_spatial(
                     # (only possible when no spatial octave ran at all)
                     levels = [
                         pyramid.blur_separable(
-                            x, cfg.gaussian_taps(cfg.initial_blur_sigma()),
-                            precision=cfg.pyramid_precision,
+                            x, cfg.gaussian_taps(cfg.initial_blur_sigma())
                         )
                     ]
                 for s in cfg.incremental_sigmas():
                     levels.append(
                         pyramid.blur_separable(
-                            levels[-1], cfg.gaussian_taps(float(s)),
-                            precision=cfg.pyramid_precision,
+                            levels[-1], cfg.gaussian_taps(float(s))
                         )
                     )
                 gauss = jnp.stack(levels, axis=1)

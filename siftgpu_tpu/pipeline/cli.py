@@ -148,16 +148,12 @@ def cmd_speed(argv):
     if a.trace:
         import jax
 
-        try:
-            ctx = jax.profiler.trace(a.trace)
-            ctx.__enter__()
-        except Exception as e:  # remote-TPU platforms may not support it
-            print(f"profiler trace unavailable: {e}")
-            ctx = None
+        ctx = jax.profiler.trace(a.trace)
+        ctx.__enter__()
     t0 = time.perf_counter()
     for _ in range(a.iters):
         s.run_sift(a.image)
-        s.get_feature_num()  # per-iter sync: transfer-based (see profile.py)
+        s.get_feature_num()  # per-iter sync: reads the count back
     dt = (time.perf_counter() - t0) / a.iters
     if ctx is not None:
         ctx.__exit__(None, None, None)
@@ -374,9 +370,8 @@ _COMMANDS = {
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     if "--cpu" in argv:
-        # some environments force-register an accelerator platform and ignore
-        # JAX_PLATFORMS (remote compile can take minutes for one-off CLI use);
-        # --cpu forces the CPU backend before any computation.
+        # --cpu runs on the CPU backend even where a GPU is present (set
+        # before any computation; same as JAX_PLATFORMS=cpu)
         argv.remove("--cpu")
         import jax
 

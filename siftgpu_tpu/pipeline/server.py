@@ -6,7 +6,7 @@ API call is serialized as a command word + payload over a socket to a server
 process that owns one GPU; purpose = one accelerator per process (multi-GPU
 from one client) or offload to another machine.
 
-TPU-native counterpart: intra-job scaling is SPMD (`parallel/`, SURVEY §5.8 —
+Counterpart here: intra-job scaling is SPMD (`parallel/`, SURVEY §5.8 —
 no RPC inside the mesh), but the *serving* capability (a long-lived process
 owning a chip, driven remotely) is reproduced here: a command-loop server
 wrapping one `SiftTPU` + `SiftMatchTPU` pair, and client proxies with the
@@ -136,19 +136,13 @@ def _recv(sock: socket.socket):
 
 def serve(
     port: int, host: str = "127.0.0.1", argv: Optional[Sequence[str]] = None,
-    max_sift: int = 4096, one_shot: bool = False, cpu: bool = False,
-    _ready_cb=None,
+    max_sift: int = 4096, one_shot: bool = False, _ready_cb=None,
 ) -> None:
     """Command loop owning one SiftTPU + SiftMatchTPU (the reference's
     server `main` ⚠).  `one_shot`: exit after the first client disconnects
-    (the reference's spawned-per-client mode).  `cpu`: pin the JAX platform
-    to CPU (the TPU here is single-tenant; a server sharing a machine with
-    another TPU job must not touch the chip)."""
-    if cpu:
-        import jax
-
-        jax.config.update("jax_platforms", "cpu")
-
+    (the reference's spawned-per-client mode).  The server runs on the
+    process's default device; a process that already holds the card runs
+    it in a thread (one JAX process per card)."""
     from .api import ComboSiftTPU
 
     combo = ComboSiftTPU(argv=list(argv) if argv else None, max_sift=max_sift)
@@ -335,6 +329,8 @@ def create_remote_sift_tpu(
     """`CreateRemoteSiftGPU(port, hostname)` analog ⚠: connect to a feature
     server, spawning one locally first when none is listening (spawn=None
     auto-decides; the reference spawns `ServerSiftGPU.exe` the same way).
+    `cpu`: the spawned server runs on the CPU backend, leaving the card to
+    the calling process.
     """
     local = hostname in ("127.0.0.1", "localhost", "::1")
     proc = None

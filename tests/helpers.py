@@ -1,4 +1,4 @@
-"""Shared test utilities: oracle<->TPU feature comparison."""
+"""Shared test utilities: oracle<->JAX feature comparison."""
 
 from __future__ import annotations
 

@@ -1,5 +1,6 @@
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from siftgpu_tpu.core.config import SiftConfig
 from siftgpu_tpu.frontend import detect, pyramid
@@ -90,3 +91,35 @@ def test_adjacent_max_min_both_survive_pooling():
     m = np.asarray(kp.mask[0])
     got = set(zip(np.asarray(kp.y[0])[m].astype(int), np.asarray(kp.x[0])[m].astype(int)))
     assert {(10, 10), (10, 11), (20, 20)} <= got
+
+
+@pytest.mark.parametrize("subpixel,digest", [
+    (True, "77428dcc074c51eb"), (False, "ddefeb9be6b6f40a"),
+])
+def test_cramer_record_is_bit_identical_to_before_the_move(subpixel, digest):
+    """`cramer_record` moved into frontend/detect.py unchanged: its jitted
+    record planes on a seeded DoG volume hash to the values the pre-move
+    function produced on XLA:CPU."""
+    import hashlib
+
+    import jax
+
+    rng = np.random.default_rng(2024)
+    rng.uniform(-6.0, 0.5, 4096)     # same stream as the recorded run
+    dog = jnp.asarray(rng.normal(0.0, 0.02, (2, 5, 24, 40)).astype(np.float32))
+
+    def rec(d):
+        S, H, W = d.shape[1] - 2, d.shape[2], d.shape[3]
+        dgp = jnp.pad(d, ((0, 0), (0, 0), (1, 1), (1, 1)))
+
+        def q(dl, dy, dx):
+            return dgp[:, 1 + dl:1 + dl + S, 1 + dy:1 + dy + H,
+                       1 + dx:1 + dx + W]
+
+        v, ol, oy, ox, (a, b, c) = detect.cramer_record(q, subpixel)
+        return v, ol, oy, ox, a, b, c
+
+    h = hashlib.sha256()
+    for arr in jax.jit(rec)(dog):
+        h.update(np.ascontiguousarray(np.asarray(arr)).tobytes())
+    assert h.hexdigest()[:16] == digest

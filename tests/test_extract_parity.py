@@ -44,14 +44,10 @@ def test_full_parity(parity_case):
     # repeatability target >= 95% (BASELINE.md); oracle-parity should be ~100%
     assert len(pairs) >= 0.99 * len(o["x"])
     tds = np.array([angdiff(o["theta"][ia], j["theta"][ib]) for ia, ib in pairs])
-    # gradient stacks are bf16 storage since round 5 (halves the keypoint
-    # engine's dominant window-DMA cost); the oracle keeps f32 gradients, so
-    # orientation parity is quantile-class.  Measured on this fixture:
-    # median 1.1e-4, q75 3.2e-4, q90 5.6e-3, max 3.5e-2 rad (2 deg) — the
-    # tail comes from near-tie histogram peaks and stays far inside the
-    # 10-deg orientation bin and the 45-deg descriptor bin; descriptor
-    # cosine min 0.998.  End-to-end warp-inlier and OpenCV cross-checks
-    # bound the behavioral impact.
+    # gradient stacks are f32, like the oracle's.  Measured on this fixture:
+    # median 1.1e-6, q75 2.7e-6, q90 4.6e-6, max 1.3e-5 rad; descriptor
+    # cosine min 1.0000.  The bounds below date from bf16 gradient storage
+    # (max 3.5e-2 rad then) and stay as the regression limit.
     assert np.quantile(tds, 0.75) < 1e-3
     assert np.quantile(tds, 0.9) < 2e-2
     assert tds.max() < 0.05            # no peak mixups

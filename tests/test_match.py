@@ -207,7 +207,7 @@ def test_auto_streaming_policy_matches_dense():
 
 
 def test_int8_path_matches_f32_path():
-    """uint8 descriptors ride the exact-bf16 MXU path (one bf16 dot with
+    """uint8 descriptors ride the exact-bf16 path (one bf16 dot with
     f32 accumulation IS the integer dot — see frontend/match._u8_parts;
     VERDICT r3 task 1); the same data cast to f32 rides the old
     Precision.HIGHEST path.  Selection must be identical and the winner
